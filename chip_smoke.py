@@ -6,23 +6,37 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 0. the card's name and power limit (nvidia-smi), then the nvcc build of the
-   four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+   five CUDA kernels from ``src/repro_torch/kernels/csrc``;
 1. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (the 8-objective smoke spec, k = 1024 each, capacity
-   8201), with the kernel's, the plain version's and, where one exists, a
-   single PyTorch call's time (CUDA events, median of 21);
+   path's shapes (K1-K4: the 8-objective smoke spec, k = 1024 each,
+   capacity 8201; K5: c = 4098 slab points of dim 68 against (Q, Cmax) in
+   {(1, 20), (128, 20), (128, 1)}, and dim 3, in cost mode at mu in
+   {1, 2, 1.5} and in ball mode, run-to-run and alone-vs-batch bits), with
+   the kernel's, the plain version's and, where one exists, a single
+   PyTorch call's time (CUDA events, median of 21);
 2. serving through ``EnginePool``: 3 tenants x 4 shards, 16 chunks of
    1,048,576 rows each, interleaved with 32 submitted query batches
    (B = 128, all 8 objectives) per tenant; every response FRESH, the
    whole-stream sum/count estimates within 4 cv of the exact values, a
    plain-path twin engine bit-equal, the last round's pumped answers
    bit-equal to direct queries, and one absorb / one query moving the
-   kernel launch counters by exactly (2, 4, 2, 0) / (0, 0, 0, 1);
+   kernel launch counters by exactly (2, 4, 2, 0, 0) / (0, 0, 0, 1, 0);
 3. durability: snapshot + WAL tail, close, ``EnginePool.open``, answers
-   bit-identical.
+   bit-identical;
+4. the metric tier at the shape of US Census Data (1990), 2,458,285 points
+   x 68 attributes (a 20-component Gaussian mixture made on the card from a
+   fixed seed): ``ClusterEngine(k=4096, mu=2, 8 anchors)`` absorbs it in 10
+   chunks, ``local_search(k=20, n_cand=32, rounds=16)`` and
+   ``kcenter(20)`` run on it; a plain-path twin engine gives a bit-equal
+   slab and service costs within rtol 1e-5, one absorb / one service_costs
+   move the counters by exactly (1, 2, 1, 0, 0) / (0, 0, 0, 0, 1), the
+   estimated costs of the generator's centers and of the search's initial
+   set lie within 4 cv of their exact costs over all points, the search
+   does not raise the exact cost, and k-center's coverage equals its total.
 
-Prints the card line, a ``{"kernels": [...]}`` line (launch counts from
-phase 2, errors and times from phase 1) and, last, ``{"ok": true, ...}``.
+Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
+from phase 2 and of K5 from phase 4, errors and times from phase 1) and,
+last, ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -41,9 +55,17 @@ N_CHUNKS = 16                   # chunks per tenant
 SHARDS = 4
 B = 128                         # predicates per query batch
 QUERIES_PER_TENANT = 32
+CENSUS_N = 2_458_285            # US Census Data (1990), UCI: points
+CENSUS_DIM = 68                 # ... and attributes
+CENSUS_COMPONENTS = 20          # mixture components = centers sought
+CENSUS_CHUNKS = 10
+SLAB_K = 4096                   # ClusterEngine(k=...): capacity 4098
+LS_CAND = 32
+LS_ROUNDS = 16
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 REPS = 21
+SERVING_KERNELS = ("seeds", "blockselect", "compact", "segquery")
 
 
 def _fail(msg: str):
@@ -354,8 +376,9 @@ def phase_serving(torch, C, K, pool_mod, query_mod):
         pump_ms.append((time.perf_counter() - t0) * 1e3)
         futures += round_futs
     counts = K.launch_counts()
-    for name, n in counts.items():
-        _check(n > 0, f"kernel {name} never launched on the main path")
+    for name in SERVING_KERNELS:
+        _check(counts[name] > 0,
+               f"kernel {name} never launched on the serving path")
     cvb = C.cv_bound(1.0, 1024)
     for t, (s_exact, n_exact), fut in futures:
         r = fut.result(0)
@@ -414,8 +437,10 @@ def phase_serving(torch, C, K, pool_mod, query_mod):
     eng.query_many(predicates=tables["t0"])
     q_ms = (time.perf_counter() - t0) * 1e3
     query_counts = K.launch_counts()
-    want_a = {"seeds": 2, "blockselect": 4, "compact": 2, "segquery": 0}
-    want_q = {"seeds": 0, "blockselect": 0, "compact": 0, "segquery": 1}
+    want_a = {"seeds": 2, "blockselect": 4, "compact": 2, "segquery": 0,
+              "servicecost": 0}
+    want_q = {"seeds": 0, "blockselect": 0, "compact": 0, "segquery": 1,
+              "servicecost": 0}
     _check(absorb_counts == want_a, f"absorb launches {absorb_counts}")
     _check(query_counts == want_q, f"query launches {query_counts}")
     print(f"controlled epoch: absorb launches {absorb_counts}, query_many "
@@ -510,6 +535,272 @@ def phase_durability(C, pool_mod):
 
 
 # ---------------------------------------------------------------------------
+# phase 1, K5: the service-cost kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def k5_inputs(torch, CO, dev, q, cmax, dim, c, mode, rng):
+    """A slab of c points (the census mixture's scale) and a [q, cmax]
+    table of ragged sets near the data with one all-invalid row; ``mode``:
+    a cost-mode mu (1.0, 2.0, 1.5) for every row, or "ball"."""
+    pts = rng.normal(0, 7.9, (c, dim)).astype(np.float32)
+    centers = (pts[rng.integers(0, c, (q, cmax))]
+               + rng.normal(0, 2.5, (q, cmax, dim))).astype(np.float32)
+    cvalid = np.arange(cmax)[None, :] < rng.integers(1, cmax + 1, (q, 1))
+    if q > 5:
+        cvalid[5] = False
+    ball = mode == "ball"
+    mu = np.full(q, 1.0 if ball else mode, np.float32)
+    # radii around the typical nearest-center distance, so balls cut sets
+    radius = (np.sqrt(2.0 * dim) * 2.5 * rng.uniform(0.8, 1.2, q)).astype(
+        np.float32)
+    probs = rng.uniform(0.02, 1.0, c).astype(np.float32)
+    member = rng.random(c) < 0.8
+    slab = tuple(torch.from_numpy(a).to(dev) for a in (pts, probs, member))
+    table = CO.table_to(CO.CostTable(centers, cvalid, mu, radius, np.full(
+        q, int(ball), np.int32)), dev)
+    return slab, table
+
+
+def k5_check(torch, CO, got, want, slab, table, what):
+    """Cost rows within rtol 1e-5 of the plain version; a ball row within
+    that rtol plus the HT weight of exactly the slots whose plain d2 lies
+    within 8 eps32 (|x|^2 + |c|^2) of r^2. Returns the largest error."""
+    pts, probs, member = slab
+    ht = torch.where(member, 1.0 / torch.clamp_min(probs, 1e-30),
+                     torch.zeros_like(probs)).double()
+    pn2 = (pts.double() ** 2).sum(1)
+    err = 0.0
+    for i in range(got.shape[0]):
+        g, w = float(got[i]), float(want[i])
+        slack = 1e-5 * abs(w)
+        if int(table.mode[i]) == CO.MODE_BALL and bool(table.cvalid[i].any()):
+            ctr = table.centers[i][table.cvalid[i]]
+            d2 = CO.sq_dists(ctr, pts).double()
+            tol = 8 * 2.0 ** -23 * ((ctr.double() ** 2).sum(1)[:, None]
+                                    + pn2[None, :])
+            near = ((d2.min(0).values - float(table.param[i]) ** 2).abs()
+                    <= tol.max(0).values)
+            slack += float(ht[near].sum())
+        _check(abs(g - w) <= slack,
+               f"K5 {what} row {i}: kernel {g} vs plain {w} (allowed "
+               f"{slack})")
+        err = max(err, abs(g - w))
+    return err
+
+
+def phase_k5(torch, K, dev):
+    from repro_torch.core import costs as CO
+    from repro_torch.kernels.servicecost import service_cost_slab_plain
+    rng = np.random.default_rng(11)
+    c = SLAB_K + 2                              # the engine's capacity
+    err = 0.0
+    for q, cmax, dim in ((1, 20, CENSUS_DIM), (128, 20, CENSUS_DIM),
+                         (128, 1, CENSUS_DIM), (128, 20, 3)):
+        for mode in (1.0, 2.0, 1.5, "ball"):
+            slab, table = k5_inputs(torch, CO, dev, q, cmax, dim, c, mode,
+                                    rng)
+            got = K.service_cost_slab(*slab, table)
+            again = K.service_cost_slab(*slab, table)
+            want = service_cost_slab_plain(*slab, table)
+            torch.cuda.synchronize()
+            what = f"Q={q} Cmax={cmax} dim={dim} mode={mode}"
+            _check(torch.equal(got, again), f"K5 {what}: not run-to-run "
+                   "identical")
+            e = k5_check(torch, CO, got, want, slab, table, what)
+            if mode != "ball":
+                err = max(err, e)
+            if q > 5:
+                _check(float(got[5]) == 0.0, f"K5 {what}: all-invalid row "
+                       "not 0")
+                for i in (0, 3, 77, q - 1):
+                    alone = CO.CostTable(*(x[i:i + 1].contiguous()
+                                           for x in table))
+                    _check(torch.equal(K.service_cost_slab(*slab, alone)[0],
+                                       got[i]),
+                           f"K5 {what}: set {i} alone differs from its bits "
+                           f"in the batch of {q}")
+        pw = torch.rand(c, device=dev)
+        k5_check(torch, CO, K.service_cost_slab(*slab, table,
+                                                point_weights=pw),
+                 service_cost_slab_plain(*slab, table, pw), slab, table,
+                 f"Q={q} dim={dim} weighted")
+    # timing at the local-search launch shapes: Q = 128, and the padded
+    # Q = 16 of a round's last launch and of single queries
+    slab, table = k5_inputs(torch, CO, dev, 16, 20, CENSUS_DIM, c, 2.0, rng)
+    t_16 = cuda_ms(torch, lambda: K.service_cost_slab(*slab, table))
+    slab, table = k5_inputs(torch, CO, dev, 128, 20, CENSUS_DIM, c, 2.0, rng)
+    pts = slab[0]
+    flat = table.centers.reshape(-1, CENSUS_DIM)
+    pts_t = pts.T.contiguous()
+    t_k = cuda_ms(torch, lambda: K.service_cost_slab(*slab, table))
+    t_p = cuda_ms(torch, lambda: service_cost_slab_plain(*slab, table))
+    t_l = cuda_ms(torch, lambda: torch.matmul(flat, pts_t))
+    q, cmax = table.cvalid.shape
+    # bytes: points, probs, member read once, centers, cvalid, mu, param,
+    # mode read once, Q answers written; ops: 2 dim per (set, center, slot)
+    # distance product, plus |x|^2 and |c|^2 (2 dim each)
+    b_ms, b_by = bound(c * (CENSUS_DIM * 4 + 5)
+                       + q * cmax * (CENSUS_DIM * 4 + 1) + q * 16,
+                       2 * q * cmax * CENSUS_DIM * c + 2 * CENSUS_DIM * c
+                       + 2 * q * cmax * CENSUS_DIM)
+    print(f"K5 servicecost c={c} Q={q} Cmax={cmax} dim={CENSUS_DIM}: kernel "
+          f"{t_k:.4f} ms (Q=16: {t_16:.4f} ms), plain {t_p:.4f} ms, "
+          f"torch.matmul of the distance "
+          f"product alone {t_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"cost rows rtol 1e-5 and ball rows within the d2 window at "
+          f"(Q, Cmax) in (1, 20), (128, 20), (128, 1) and dim 3, mu in "
+          f"(1, 2, 1.5) and ball; run-to-run and alone-vs-batch bits",
+          flush=True)
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=t_l)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the metric tier at the Census1990 shape
+# ---------------------------------------------------------------------------
+
+def census_points(torch, dev, n: int):
+    """n x 68 points of a 20-component Gaussian mixture, made on the card
+    from a fixed seed: component means N(0, 7.5^2), spread 2.5, so
+    |x|^2 ~ 4250 as in the published data's scale. Returns (X, means)."""
+    g = torch.Generator(device=dev).manual_seed(1990)
+    means = 7.5 * torch.randn((CENSUS_COMPONENTS, CENSUS_DIM), generator=g,
+                              device=dev)
+    label = torch.randint(0, CENSUS_COMPONENTS, (n,), generator=g,
+                          device=dev)
+    X = means[label] + 2.5 * torch.randn((n, CENSUS_DIM), generator=g,
+                                         device=dev)
+    return X.contiguous(), means
+
+
+def counts_delta(K, before):
+    now = K.launch_counts()
+    return tuple(now[k] - before[k] for k in now)
+
+
+def phase_metric(torch, C, K, dev, n: int = CENSUS_N):
+    from repro_torch.launch.cluster import (ClusterEngine, _candidate_pool,
+                                            kcenter, local_search)
+    X, means = census_points(torch, dev, n)
+    chunks = torch.tensor_split(X, CENSUS_CHUNKS)
+    cfg = dict(dim=CENSUS_DIM, k=SLAB_K, mu=2.0, n_anchors=8, seed=0)
+    eng = ClusterEngine(**cfg)
+    want_fold = (1, 2, 1, 0, 0)
+
+    # the main path, counted from 0
+    K.reset_launch_counts()
+    absorb_ms = []
+    for i, ch in enumerate(chunks):
+        before = K.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.absorb(ch)
+        torch.cuda.synchronize()
+        absorb_ms.append((time.perf_counter() - t0) * 1e3)
+        _check(counts_delta(K, before) == want_fold,
+               f"absorb {i} launches {counts_delta(K, before)}, want "
+               f"{want_fold}")
+    _check(not eng.overflow, "metric slab overflowed")
+    init = local_search(eng, k=CENSUS_COMPONENTS, n_cand=LS_CAND, rounds=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = local_search(eng, k=CENSUS_COMPONENTS, n_cand=LS_CAND,
+                       rounds=LS_ROUNDS)
+    ls_s = time.perf_counter() - t0
+    ls_k5 = K.launch_counts()["servicecost"] - 1     # less init's scoring
+    kc = kcenter(eng, CENSUS_COMPONENTS)
+    counts = K.launch_counts()
+    torch.cuda.synchronize()
+    for name in ("seeds", "blockselect", "compact", "servicecost"):
+        _check(counts[name] > 0, f"kernel {name} never launched on the "
+               f"metric path")
+
+    # one service_costs of Q <= 128
+    q_one = C.cost_table(np.stack([res.centers, init.centers]), 2.0)
+    before = K.launch_counts()
+    eng.service_costs(q_one)
+    _check(counts_delta(K, before) == (0, 0, 0, 0, 1),
+           f"service_costs launches {counts_delta(K, before)}")
+
+    # the plain-path twin on the card: bit-equal slab, costs within rtol
+    twin = ClusterEngine(use_kernels=False, **cfg)
+    before = K.launch_counts()
+    for ch in chunks:
+        twin.absorb(ch)
+    _check(counts_delta(K, before) == (0, 0, 0, 0, 0),
+           "the plain twin launched kernels")
+    for name, a, b in zip(eng._sketch._fields, eng._sketch, twin._sketch):
+        _check(torch.equal(a, b), f"metric twin: slab {name} differs")
+    _check(torch.equal(eng._coords, twin._coords),
+           "metric twin: coords differ")
+    rng = np.random.default_rng(21)
+    cand = _candidate_pool(eng, 4 * LS_CAND)
+    sets = np.stack([cand[rng.choice(len(cand), CENSUS_COMPONENTS,
+                                     replace=False)] for _ in range(30)])
+    table = C.cost_table(np.concatenate(
+        [means.cpu().numpy()[None], res.centers[None], sets]), 2.0)
+    ka, kb = eng.service_costs(table), twin.service_costs(table)
+    _check(np.allclose(ka, kb, rtol=1e-5, atol=0.0),
+           f"metric twin: service costs beyond rtol 1e-5 (max rel "
+           f"{np.max(np.abs(ka - kb) / np.abs(kb)):.3g})")
+
+    # estimates against the exact costs over all n points
+    exact = C.exact_service_costs(X, C.cost_table(np.stack(
+        [means.cpu().numpy(), init.centers, res.centers]), 2.0)).cpu().numpy()
+    est = eng.service_costs(C.cost_table(np.stack(
+        [means.cpu().numpy(), init.centers]), 2.0))
+    cvb = C.cv_bound(1.0, SLAB_K)
+    for what, e, x in (("generator centers", est[0], exact[0]),
+                       ("initial set", est[1], exact[1])):
+        _check(abs(float(e) - float(x)) <= 4 * cvb * float(x),
+               f"{what}: estimate {e} vs exact {x} beyond 4 cv "
+               f"({4 * cvb:.4f})")
+    _check(exact[2] <= exact[1], f"local search raised the exact cost: "
+           f"{exact[1]} -> {exact[2]}")
+    _check(all(a >= b for a, b in zip(res.history, res.history[1:])),
+           "local search history not monotone")
+    _check(abs(kc.coverage_est - kc.total_est) <= 1e-5 * kc.total_est,
+           f"k-center coverage {kc.coverage_est} != total {kc.total_est}")
+    idle, round_ms, dev_ms = round_idle_share(torch, eng, res.centers)
+    print(f"metric tier n={n} dim={CENSUS_DIM} (capacity {eng.spec.cap}): "
+          f"absorb ms p50 {np.percentile(absorb_ms, 50):.3f} p95 "
+          f"{np.percentile(absorb_ms, 95):.3f} (first {absorb_ms[0]:.3f}); "
+          f"launches per absorb {want_fold}, per service_costs "
+          f"(0, 0, 0, 0, 1); twin slab bit-equal, costs within rtol 1e-5; "
+          f"local search {ls_s * 1e3:.3f} ms wall, {res.rounds} rounds, "
+          f"{ls_k5} K5 launches; estimate/exact generator "
+          f"{est[0] / exact[0]:.5f}, initial {est[1] / exact[1]:.5f} "
+          f"(4 cv = {4 * cvb:.4f}); exact cost final/generator "
+          f"{exact[2] / exact[0]:.5f}, initial/generator "
+          f"{exact[1] / exact[0]:.5f}; k-center radius {kc.radius:.4f}, "
+          f"coverage {kc.coverage_est:.1f} = total {kc.total_est:.1f}; one "
+          f"round (641 sets) {round_ms:.3f} ms wall under the profiler, "
+          f"device {dev_ms:.3f} ms, idle share {idle:.3f}", flush=True)
+    return counts
+
+
+def round_idle_share(torch, eng, cur):
+    """One local-search round's work from the center set ``cur`` (build the
+    1 + k n_cand swap sets, score them through K5, argmin) under the
+    profiler: (device idle share, wall ms, device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.costs import cost_table
+    from repro_torch.launch.cluster import _candidate_pool, _swap_sets
+    cand = _candidate_pool(eng, LS_CAND)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scores = eng.service_costs(cost_table(_swap_sets(cur, cand), eng.mu))
+        int(np.argmin(scores[1:]))
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    return max(0.0, 1 - dev_ms / wall), wall, dev_ms
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -542,19 +833,23 @@ def main() -> int:
     dev = torch.device("cuda")
 
     kstats = phase_kernels(torch, C, K, dev)
+    kstats["servicecost"] = phase_k5(torch, K, dev)
     counts = phase_serving(torch, C, K, pool_mod, query_mod)
     phase_durability(C, pool_mod)
+    metric_counts = phase_metric(torch, C, K, dev)
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("blockselect.cu", "blockselect.py:41"),
                "compact": ("compact.cu", "compact.py:39"),
-               "segquery": ("segquery.cu", "segquery.py:44")}
+               "segquery": ("segquery.cu", "segquery.py:44"),
+               "servicecost": ("servicecost.cu", "servicecost.py:48")}
     rows = []
     for name, (cu, tpu) in sources.items():
+        launches = (metric_counts if name == "servicecost" else counts)[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{cu}",
                      "replaces": f"src/repro/kernels/{tpu}",
-                     "launches": counts[name], **kstats[name]})
+                     "launches": launches, **kstats[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

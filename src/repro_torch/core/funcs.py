@@ -12,8 +12,9 @@ from typing import Tuple
 import torch
 
 
-def moment_pow(w: torch.Tensor, p: float) -> torch.Tensor:
-    """w ** p for w > 0, else 0 (float32), as ``powf(max(w, 1e-30), p)``.
+def powf(base: torch.Tensor, exponent) -> torch.Tensor:
+    """base ** exponent elementwise in float32, as the kernels' ``powf``;
+    ``exponent`` is a number or a tensor that broadcasts against base.
 
     On CUDA the exponent goes in as a tensor, so PyTorch calls ``powf``
     itself (with a Python scalar it would substitute sqrt, square, ... for
@@ -22,12 +23,17 @@ def moment_pow(w: torch.Tensor, p: float) -> torch.Tensor:
     its scalar tail, which would make a slot's bits depend on its position
     in the batch; the power is therefore taken in float64 and rounded once.
     """
+    e = torch.as_tensor(exponent, dtype=torch.float32, device=base.device)
+    if base.device.type == "cuda":
+        return torch.pow(base, e.expand_as(base))
+    return torch.pow(base.to(torch.float64),
+                     e.to(torch.float64)).to(torch.float32)
+
+
+def moment_pow(w: torch.Tensor, p: float) -> torch.Tensor:
+    """w ** p for w > 0, else 0 (float32), as ``powf(max(w, 1e-30), p)``."""
     wf = w.to(torch.float32)
-    base = torch.clamp_min(wf, 1e-30)
-    if wf.device.type == "cuda":
-        pw = torch.pow(base, torch.full_like(base, float(p)))
-    else:
-        pw = torch.pow(base.to(torch.float64), float(p)).to(torch.float32)
+    pw = powf(torch.clamp_min(wf, 1e-30), float(p))
     return torch.where(wf > 0, pw, torch.zeros_like(pw))
 
 

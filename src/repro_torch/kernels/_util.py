@@ -106,6 +106,9 @@ _SIGNATURES = {
     # keys, w, p, member, table, out, c, b, nf, kinds*, params*, stream
     "repro_segquery": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP,
                        _VP),
+    # pts, probs, member, pw (or NULL), centers, cvalid, mu, param, mode,
+    # out, c, dim, q, cmax, threads, smem bytes, stream
+    "repro_servicecost": (_VP,) * 10 + (_I,) * 6 + (_VP,),
 }
 
 

@@ -7,7 +7,10 @@ test module either: a site-packages ``tests`` package may shadow ours):
 
 Every test carries the ``gpu`` marker and skips where there is no card.
 Tolerances: one libm on both sides, so seeds and f-values within 2 ulp
-(measured 0), selections and priorities exact, estimates rtol 1e-5."""
+(measured 0), selections and priorities exact, estimates rtol 1e-5; K5's
+ball-mode estimates within that rtol plus the HT weight of the slots whose
+d2 lies within 8 eps32 (|x|^2 + |c|^2) of r^2 (the two sides sum the dot
+products in another order)."""
 import numpy as np
 import pytest
 
@@ -18,6 +21,8 @@ from repro_torch.kernels import blockselect as kbs            # noqa: E402
 from repro_torch.kernels import compact as kc                 # noqa: E402
 from repro_torch.kernels import seeds as ks                   # noqa: E402
 from repro_torch.kernels import segquery as kq                # noqa: E402
+from repro_torch.kernels import servicecost as ksc            # noqa: E402
+from repro_torch.core import costs as CO                      # noqa: E402
 from repro_torch.core import predicates as P                  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -110,3 +115,82 @@ def test_segquery_kernel_matches_plain_and_is_batch_independent(cuda):
         alone = K.segment_query_slab(*slab, table[i:i + 1].contiguous(),
                                      OBJ8)
         assert torch.equal(alone[:, 0], got[:, i])
+
+
+def _k5_inputs(dev, q, cmax, dim, c=4098, seed=6, mode="mix"):
+    """A slab of c points and a [q, cmax] table: ragged sets near the data,
+    one all-invalid row, mu cycling 1, 2, 1.5 and every 4th row in ball
+    mode (``mode="mix"``), or one mode for every row."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0, 6, (c, dim)).astype(np.float32)
+    centers = (pts[rng.integers(0, c, (q, cmax))]
+               + rng.normal(0, 0.5, (q, cmax, dim))).astype(np.float32)
+    cvalid = np.arange(cmax)[None, :] < rng.integers(1, cmax + 1, (q, 1))
+    if q > 5:
+        cvalid[5] = False
+    mu = np.array([1.0, 2.0, 1.5], np.float32)[np.arange(q) % 3]
+    ball = (np.arange(q) % 4 == 3) if mode == "mix" else np.full(
+        q, mode == "ball")
+    radius = np.sqrt(np.float32(dim)) * rng.uniform(2, 10, q).astype(
+        np.float32)
+    slab = _on(dev, pts, rng.uniform(0.02, 1.0, c).astype(np.float32),
+               rng.random(c) < 0.8)
+    table = CO.table_to(CO.CostTable(centers, cvalid, mu, radius,
+                                     ball.astype(np.int32)), dev)
+    return slab, table
+
+
+def _assert_k5_close(got, want, slab, table):
+    """Cost rows within rtol 1e-5; ball rows within it plus the HT weight
+    of the slots near r^2 under the plain d2."""
+    pts, probs, member = slab
+    ht = torch.where(member, 1.0 / torch.clamp_min(probs, 1e-30),
+                     torch.zeros_like(probs)).double()
+    pn2 = (pts.double() ** 2).sum(1)
+    for i in range(got.shape[0]):
+        slack = EST_RTOL * abs(float(want[i])) + 1e-6
+        if int(table.mode[i]) == CO.MODE_BALL and bool(table.cvalid[i].any()):
+            ctr = table.centers[i][table.cvalid[i]]
+            d2 = CO.sq_dists(ctr, pts).double()
+            tol = 8 * 2.0 ** -23 * ((ctr.double() ** 2).sum(1)[:, None]
+                                    + pn2[None, :])
+            near = ((d2.min(0).values - float(table.param[i]) ** 2).abs()
+                    <= tol.max(0).values)
+            slack += float(ht[near].sum())
+        assert abs(float(got[i]) - float(want[i])) <= slack, (i, got[i],
+                                                              want[i])
+
+
+@pytest.mark.parametrize("q,cmax,dim,mode", [
+    (1, 20, 68, "cost"), (128, 20, 68, "mix"), (128, 1, 68, "mix"),
+    (128, 20, 68, "ball"), (64, 7, 3, "mix")])
+def test_servicecost_kernel_matches_plain(cuda, q, cmax, dim, mode):
+    slab, table = _k5_inputs(cuda, q, cmax, dim, mode=mode)
+    got = K.service_cost_slab(*slab, table)
+    want = ksc.service_cost_slab_plain(*slab, table)
+    _assert_k5_close(got, want, slab, table)
+    if q > 5:
+        assert float(got[5]) == 0.0                 # all-invalid row
+    pw = torch.rand(slab[0].shape[0], device=cuda)
+    _assert_k5_close(K.service_cost_slab(*slab, table, point_weights=pw),
+                     ksc.service_cost_slab_plain(*slab, table, pw), slab,
+                     table)
+
+
+def test_servicecost_kernel_is_deterministic_and_batch_independent(cuda):
+    slab, table = _k5_inputs(cuda, 128, 20, 68)
+    full = K.service_cost_slab(*slab, table)
+    assert torch.equal(full, K.service_cost_slab(*slab, table))
+    for i in (0, 3, 77, 127):
+        alone = CO.CostTable(*(x[i:i + 1].contiguous() for x in table))
+        assert torch.equal(K.service_cost_slab(*slab, alone)[0], full[i])
+    # a set padded to a larger Cmax keeps its bits
+    wide = CO.CostTable(
+        torch.nn.functional.pad(table.centers, (0, 0, 0, 12)),
+        torch.nn.functional.pad(table.cvalid, (0, 12)), *table[2:])
+    assert torch.equal(K.service_cost_slab(*slab, wide), full)
+    null = CO.table_to(CO.pad_cost_table(CO.CostTable(
+        *(x[:3].cpu().numpy() for x in table)), 16), cuda)
+    got = K.service_cost_slab(*slab, null)
+    assert torch.equal(got[:3], full[:3])
+    assert torch.equal(got[3:], torch.zeros(13, device=cuda))
