@@ -6,21 +6,23 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 0. the card's name and power limit (nvidia-smi), then the nvcc build of the
-   five CUDA kernels from ``src/repro_torch/kernels/csrc``;
+   six CUDA kernels from ``src/repro_torch/kernels/csrc``;
 1. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (K1-K4: the 8-objective smoke spec, k = 1024 each,
    capacity 8201; K5: c = 4098 slab points of dim 68 against (Q, Cmax) in
    {(1, 20), (128, 20), (128, 1)}, and dim 3, in cost mode at mu in
-   {1, 2, 1.5} and in ball mode, run-to-run and alone-vs-batch bits), with
-   the kernel's, the plain version's and, where one exists, a single
-   PyTorch call's time (CUDA events, median of 21);
+   {1, 2, 1.5} and in ball mode, run-to-run and alone-vs-batch bits; K6:
+   exact at n = 65,536 and on 4,096 sampled rows at n = 2^20), with the
+   kernel's, the plain version's and, where one exists, a single PyTorch
+   call's time (CUDA events, median of 21; K6 of 5);
 2. serving through ``EnginePool``: 3 tenants x 4 shards, 16 chunks of
    1,048,576 rows each, interleaved with 32 submitted query batches
    (B = 128, all 8 objectives) per tenant; every response FRESH, the
    whole-stream sum/count estimates within 4 cv of the exact values, a
    plain-path twin engine bit-equal, the last round's pumped answers
    bit-equal to direct queries, and one absorb / one query moving the
-   kernel launch counters by exactly (2, 4, 2, 0, 0) / (0, 0, 0, 1, 0);
+   kernel launch counters by exactly (2, 4, 2, 0, 0, 0) /
+   (0, 0, 0, 1, 0, 0);
 3. durability: snapshot + WAL tail, close, ``EnginePool.open``, answers
    bit-identical;
 4. the metric tier at the shape of US Census Data (1990), 2,458,285 points
@@ -29,14 +31,30 @@ Phases (any failure exits non-zero; nothing is caught):
    chunks, ``local_search(k=20, n_cand=32, rounds=16)`` and
    ``kcenter(20)`` run on it; a plain-path twin engine gives a bit-equal
    slab and service costs within rtol 1e-5, one absorb / one service_costs
-   move the counters by exactly (1, 2, 1, 0, 0) / (0, 0, 0, 0, 1), the
-   estimated costs of the generator's centers and of the search's initial
-   set lie within 4 cv of their exact costs over all points, the search
-   does not raise the exact cost, and k-center's coverage equals its total.
+   move the counters by exactly (1, 2, 1, 0, 0, 0) / (0, 0, 0, 0, 1, 0),
+   the estimated costs of the generator's centers and of the search's
+   initial set lie within 4 cv of their exact costs over all points, the
+   search does not raise the exact cost, and k-center's coverage equals
+   its total;
+5. the universal tier, ``examples/quickstart.py`` at 2^20 keys (weights
+   lognormal(0, 2) made on the card, hash seed 42, k = 64): one universal
+   monotone sample (size within the Thm 5.1 expectation plus 4 sigma;
+   COUNT, SUM, thresh(5), cap(2), moment(1.5) on the segment domain == 3
+   within 4 cv of exact), 16 shard sketches folded with ``merge_sketches``
+   equal to the whole-set sketch (member triples) with its SUM within
+   4 cv, ``ops.multi_objective_bottomk_kernel`` (K1 + K2) equal to
+   ``multi_bottomk_sample`` (members exact, probs within 1e-6), and on
+   weights clip(lognormal(0, 1), 0.1, 10) ``universal_capping_sample``
+   (k = 64, m_cap = 4096) against ``ops.universal_capping_kernel`` (K6 at
+   2^20): members and hl equal, size within Thm 6.1's bound, cap_T
+   estimates within 4 cv for T in {0.5, 1, 2, 5}; then a warm sample and
+   a shard fold under the profiler (wall, device time, idle share).
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
-from phase 2 and of K5 from phase 4, errors and times from phase 1) and,
-last, ``{"ok": true, ...}``.
+from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
+from phase 1; K6's row gives its time at n = 2^20 and its plain version's
+at ``plain_n`` = 65,536, beside the kernel's own time there) and, last,
+``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -65,6 +83,12 @@ LS_ROUNDS = 16
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 REPS = 21
+K6_SMALL = 65_536               # K6 kernel = plain on all rows
+K6_ROWS = 4096                  # ... and on this many rows at 2^20
+UNIVERSAL_N = 1 << 20           # keys of the universal tier (phase 5)
+UNIVERSAL_K = 64
+UNIVERSAL_SHARDS = 16
+CAPPING_M_CAP = 4096
 SERVING_KERNELS = ("seeds", "blockselect", "compact", "segquery")
 
 
@@ -438,9 +462,9 @@ def phase_serving(torch, C, K, pool_mod, query_mod):
     q_ms = (time.perf_counter() - t0) * 1e3
     query_counts = K.launch_counts()
     want_a = {"seeds": 2, "blockselect": 4, "compact": 2, "segquery": 0,
-              "servicecost": 0}
+              "servicecost": 0, "rankcount": 0}
     want_q = {"seeds": 0, "blockselect": 0, "compact": 0, "segquery": 1,
-              "servicecost": 0}
+              "servicecost": 0, "rankcount": 0}
     _check(absorb_counts == want_a, f"absorb launches {absorb_counts}")
     _check(query_counts == want_q, f"query launches {query_counts}")
     print(f"controlled epoch: absorb launches {absorb_counts}, query_many "
@@ -656,6 +680,64 @@ def phase_k5(torch, K, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 1, K6: the rank-count kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def capping_inputs(torch, C, dev, n: int, seed: int):
+    """The operands ``ops.universal_capping_kernel`` hands K6 for n keys
+    (ids 0..n-1, hash seed 42) with weights clip(lognormal(0, 1), 0.1, 10)
+    made on the card from ``seed``, 5 % of them inactive:
+    (weights, u, r/w, active)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(n, generator=g, device=dev).exp().clamp(0.1, 10.0)
+    act = torch.rand(n, generator=g, device=dev) >= 0.05
+    u = C.uniform01(torch.arange(n, dtype=torch.int32, device=dev), 42)
+    rw = torch.where(act, C.rank_of(u, "ppswor") / w,
+                     torch.full_like(w, float("inf")))
+    return torch.where(act, w, torch.zeros_like(w)), u, rw, act
+
+
+def phase_k6(torch, C, K, dev, n_small: int = K6_SMALL,
+             n_full: int = UNIVERSAL_N):
+    from repro_torch.kernels.rankcount import rank_counts_plain
+    args = capping_inputs(torch, C, dev, n_small, 6)
+    hk_s, lk_s = K.rank_counts(*args)
+    hp_s, lp_s = rank_counts_plain(*args)
+    torch.cuda.synchronize()
+    _check(torch.equal(hk_s, hp_s) and torch.equal(lk_s, lp_s),
+           f"K6 n={n_small}: counts differ from the plain version")
+    t_small = cuda_ms(torch, lambda: K.rank_counts(*args), reps=5, inner=1)
+    t_p = cuda_ms(torch, lambda: rank_counts_plain(*args), reps=5, inner=1)
+    big = capping_inputs(torch, C, dev, n_full, 7)
+    hk, lk = K.rank_counts(*big)
+    rows = torch.randperm(n_full, device=dev)[:K6_ROWS]
+    hp, lp = rank_counts_plain(*big, rows=rows)
+    torch.cuda.synchronize()
+    _check(torch.equal(hk[rows], hp) and torch.equal(lk[rows], lp),
+           f"K6 n={n_full}: counts of {K6_ROWS} sampled rows differ from "
+           f"the plain version")
+    _check(int(hk.max()) > 0 and int(lk.max()) > 0, "K6: all counts zero")
+    err = max(max_abs(hk_s, hp_s), max_abs(lk_s, lp_s),
+              max_abs(hk[rows], hp), max_abs(lk[rows], lp))
+    t_k = cuda_ms(torch, lambda: K.rank_counts(*big), reps=5, inner=1)
+    # ops: per ordered pair of active keys (the pairs this input needs) a
+    # weight comparison, two seed comparisons and one count update; bytes:
+    # weight, two seeds, active read, h, l written
+    n_act = int(big[3].sum())
+    b_ms, b_by = bound(n_full * 13 + n_full * 8, 4.0 * n_act * n_act)
+    print(f"K6 rankcount n={n_full} ({n_act} active): kernel {t_k:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by}); n={n_small}: kernel "
+          f"{t_small:.4f} ms, plain "
+          f"{t_p:.4f} ms; exact at n={n_small} and on {K6_ROWS} sampled "
+          f"rows at n={n_full}", flush=True)
+    # ms and bound_ms are at n_full; the plain version's O(n^2) time is
+    # taken at plain_n, beside the kernel's own time there
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, n=n_full, plain_n=n_small,
+                ms_at_plain_n=t_small)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the metric tier at the Census1990 shape
 # ---------------------------------------------------------------------------
 
@@ -685,7 +767,7 @@ def phase_metric(torch, C, K, dev, n: int = CENSUS_N):
     chunks = torch.tensor_split(X, CENSUS_CHUNKS)
     cfg = dict(dim=CENSUS_DIM, k=SLAB_K, mu=2.0, n_anchors=8, seed=0)
     eng = ClusterEngine(**cfg)
-    want_fold = (1, 2, 1, 0, 0)
+    want_fold = (1, 2, 1, 0, 0, 0)
 
     # the main path, counted from 0
     K.reset_launch_counts()
@@ -719,7 +801,7 @@ def phase_metric(torch, C, K, dev, n: int = CENSUS_N):
     q_one = C.cost_table(np.stack([res.centers, init.centers]), 2.0)
     before = K.launch_counts()
     eng.service_costs(q_one)
-    _check(counts_delta(K, before) == (0, 0, 0, 0, 1),
+    _check(counts_delta(K, before) == (0, 0, 0, 0, 1, 0),
            f"service_costs launches {counts_delta(K, before)}")
 
     # the plain-path twin on the card: bit-equal slab, costs within rtol
@@ -727,7 +809,7 @@ def phase_metric(torch, C, K, dev, n: int = CENSUS_N):
     before = K.launch_counts()
     for ch in chunks:
         twin.absorb(ch)
-    _check(counts_delta(K, before) == (0, 0, 0, 0, 0),
+    _check(counts_delta(K, before) == (0, 0, 0, 0, 0, 0),
            "the plain twin launched kernels")
     for name, a, b in zip(eng._sketch._fields, eng._sketch, twin._sketch):
         _check(torch.equal(a, b), f"metric twin: slab {name} differs")
@@ -766,7 +848,7 @@ def phase_metric(torch, C, K, dev, n: int = CENSUS_N):
           f"absorb ms p50 {np.percentile(absorb_ms, 50):.3f} p95 "
           f"{np.percentile(absorb_ms, 95):.3f} (first {absorb_ms[0]:.3f}); "
           f"launches per absorb {want_fold}, per service_costs "
-          f"(0, 0, 0, 0, 1); twin slab bit-equal, costs within rtol 1e-5; "
+          f"(0, 0, 0, 0, 1, 0); twin slab bit-equal, costs within rtol 1e-5; "
           f"local search {ls_s * 1e3:.3f} ms wall, {res.rounds} rounds, "
           f"{ls_k5} K5 launches; estimate/exact generator "
           f"{est[0] / exact[0]:.5f}, initial {est[1] / exact[1]:.5f} "
@@ -779,25 +861,188 @@ def phase_metric(torch, C, K, dev, n: int = CENSUS_N):
     return counts
 
 
-def round_idle_share(torch, eng, cur):
-    """One local-search round's work from the center set ``cur`` (build the
-    1 + k n_cand swap sets, score them through K5, argmin) under the
-    profiler: (device idle share, wall ms, device ms)."""
+def profiled(torch, fn):
+    """fn() (synchronised) under the profiler: (device idle share, wall ms,
+    device ms, the top device ops as "name ms" text)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.costs import cost_table
-    from repro_torch.launch.cluster import _candidate_pool, _swap_sets
-    cand = _candidate_pool(eng, LS_CAND)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = sorted(((e.key, e.self_device_time_total / 1e3)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0), key=lambda x: -x[1])
+    dev_ms = sum(t for _, t in ops)
+    top = ", ".join(f"{name[:40]} {t:.3f}" for name, t in ops[:4])
+    return max(0.0, 1 - dev_ms / wall), wall, dev_ms, top
+
+
+def round_idle_share(torch, eng, cur):
+    """One local-search round's work from the center set ``cur`` (build the
+    1 + k n_cand swap sets, score them through K5, argmin) under the
+    profiler: (device idle share, wall ms, device ms)."""
+    from repro_torch.core.costs import cost_table
+    from repro_torch.launch.cluster import _candidate_pool, _swap_sets
+    cand = _candidate_pool(eng, LS_CAND)
+
+    def one_round():
         scores = eng.service_costs(cost_table(_swap_sets(cur, cand), eng.mu))
         int(np.argmin(scores[1:]))
-        wall = (time.perf_counter() - t0) * 1e3
-    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / 1e3
-    return max(0.0, 1 - dev_ms / wall), wall, dev_ms
+    return profiled(torch, one_round)[:3]
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the universal tier (examples/quickstart.py at 2^20 keys)
+# ---------------------------------------------------------------------------
+
+def phase_universal(torch, C, K, dev, n: int = UNIVERSAL_N,
+                    shards: int = UNIVERSAL_SHARDS):
+    from repro_torch.kernels import ops
+    k = UNIVERSAL_K
+    g = torch.Generator(device=dev).manual_seed(2015)
+    keys = torch.arange(n, dtype=torch.int32, device=dev)
+    w = (2.0 * torch.randn(n, generator=g, device=dev)).exp()
+    act = torch.ones(n, dtype=torch.bool, device=dev)
+    domain = torch.randint(0, 8, (n,), generator=g, device=dev)
+    seg = domain == 3
+    wall = {}
+
+    def timed(name, fn):
+        """fn's result; its wall time cold (the first call) and warm."""
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        wall[name] = times
+        return out
+
+    K.reset_launch_counts()
+    # 1. one universal monotone sample, many statistics
+    s = timed("universal_monotone_sample", lambda: C.universal_monotone_sample(
+        keys, w, act, k, seed=42))
+    size = int(s.member.sum())
+    ebound = C.expected_size_bound(n, k)
+    # E|S| <= ebound (Thm 5.1); one draw, a sum of indicators, gets 4 sigma
+    _check(0 < size <= ebound + 4 * ebound ** 0.5,
+           f"monotone sample size {size} vs E bound {ebound:.1f}")
+    ratios = []
+    for f in (C.COUNT, C.SUM, C.thresh(5.0), C.cap(2.0), C.moment(1.5)):
+        est = float(C.estimate(f, w, s.prob, s.member, seg))
+        ex = float(C.exact(f, w, act, seg))
+        q = ex / float(C.exact(f, w, act))
+        cvb = C.cv_bound(q, k)
+        _check(abs(est - ex) <= 4 * cvb * ex, f"monotone {f.name} on domain "
+               f"3: estimate {est} vs exact {ex} beyond 4 cv ({4 * cvb:.4f})")
+        ratios.append(f"{f.name} {est / ex:.4f} (4cv {4 * cvb:.3f})")
+
+    # 2. 16 shard sketches folded with merge_sketches
+    cap = C.sketch_capacity(n, k)
+    parts = torch.arange(n, device=dev).tensor_split(shards)
+    fold_ms = []
+    merged = None
+    for p in parts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sk = C.build_sketch(keys[p], w[p], act[p], k, cap, seed=42)
+        merged = sk if merged is None else C.merge_sketches(merged, sk,
+                                                            donate=True)
+        torch.cuda.synchronize()
+        fold_ms.append((time.perf_counter() - t0) * 1e3)
+    whole = timed("build_sketch (whole set)",
+                  lambda: C.build_sketch(keys, w, act, k, cap, seed=42))
+    _check(not bool(merged.valid.all()), "merged sketch is full (capacity "
+           f"{cap} too small)")
+    _check(member_triples(torch, merged) == member_triples(torch, whole),
+           "merged sketch's member (key, weight, prob) differ from the "
+           "whole-set sketch's")
+    sum_est = float(C.sketch_estimate(merged, C.SUM))
+    sum_ex = float(w.double().sum())
+    cvb = C.cv_bound(1.0, k)
+    _check(abs(sum_est - sum_ex) <= 4 * cvb * sum_ex, f"merged sketch SUM "
+           f"{sum_est} vs exact {sum_ex} beyond 4 cv")
+
+    # 3. multi-objective bottom-k through K1 + K2 against the core sampler
+    objs = ((0, 0.0), (3, 2.0), (1, 0.0))
+    mk, pk = timed("multi_objective_bottomk_kernel",
+                   lambda: ops.multi_objective_bottomk_kernel(
+                       keys, w, act, objs, k, seed=42))
+    core = timed("multi_bottomk_sample", lambda: C.multi_bottomk_sample(
+        keys, w, act, [(ops.statfn_of(*o), k) for o in objs], seed=42))
+    _check(torch.equal(mk, core.member), "multi-objective kernel members "
+           "differ from multi_bottomk_sample's")
+    _check(float((pk - core.prob).abs().max()) <= 1e-6,
+           "multi-objective kernel probs beyond 1e-6 of the core's")
+
+    # 4. universal capping: the sampler and K6 on the same keys
+    g2 = torch.Generator(device=dev).manual_seed(2016)
+    w2 = torch.randn(n, generator=g2, device=dev).exp().clamp(0.1, 10.0)
+    cs = timed("universal_capping_sample", lambda: C.universal_capping_sample(
+        keys, w2, act, k, m_cap=CAPPING_M_CAP, seed=42))
+    ck, hl = timed("universal_capping_kernel",
+                   lambda: ops.universal_capping_kernel(keys, w2, act, k,
+                                                        seed=42))
+    _check(torch.equal(ck, cs.member), "capping kernel members differ from "
+           "universal_capping_sample's")
+    _check(torch.equal(hl[act], cs.hl[act]), "capping kernel hl differs on "
+           "active keys")
+    csize = int(cs.member.sum())
+    cbound = C.capping_size_bound(k, 10.0, 0.1)
+    _check(0 < csize <= cbound, f"capping size {csize} > bound {cbound:.1f}")
+    n_cand = int((act & (cs.hl <= k)).sum())
+    _check(n_cand <= CAPPING_M_CAP, f"{n_cand} capping candidates > m_cap")
+    cratios = []
+    for T in (0.5, 1.0, 2.0, 5.0):
+        f = C.cap(T)
+        est = float(C.estimate(f, w2, cs.prob, cs.member))
+        ex = float(C.exact(f, w2, act))
+        _check(abs(est - ex) <= 4 * cvb * ex, f"capping cap_{T:g}: estimate "
+               f"{est} vs exact {ex} beyond 4 cv")
+        cratios.append(f"cap_{T:g} {est / ex:.4f}")
+    counts = K.launch_counts()
+    for name in ("seeds", "blockselect", "rankcount"):
+        _check(counts[name] > 0, f"kernel {name} never launched on the "
+               f"universal path")
+    # where a warm sample's and a shard fold's time goes (refolding the
+    # last shard leaves the merged sketch as it is)
+    breakdown = {
+        "monotone sample": profiled(torch, lambda: C.universal_monotone_sample(
+            keys, w, act, k, seed=42)),
+        "shard fold": profiled(torch, lambda: C.merge_sketches(
+            merged, C.build_sketch(keys[parts[-1]], w[parts[-1]],
+                                   act[parts[-1]], k, cap, seed=42)))}
+    print(f"universal tier n={n} k={k}: monotone size {size} (E bound "
+          f"{ebound:.1f}), domain-3 estimate/exact {'; '.join(ratios)}; "
+          f"{shards} shard sketches (capacity {cap}) folded == whole-set "
+          f"sketch, SUM estimate/exact {sum_est / sum_ex:.4f} (4 cv "
+          f"{4 * cvb:.3f}); "
+          f"one shard's build_sketch + merge_sketches fold ms p50 "
+          f"{np.percentile(fold_ms, 50):.3f} p95 "
+          f"{np.percentile(fold_ms, 95):.3f}; multi-objective kernel == "
+          f"core sampler; capping size {csize} (bound {cbound:.1f}, "
+          f"{n_cand} candidates), kernel == sampler, {', '.join(cratios)}; "
+          f"wall ms (cold/warm): " + ", ".join(
+              f"{a} {b[0]:.3f}/{b[1]:.3f}" for a, b in wall.items())
+          + f"; launches {counts}", flush=True)
+    for what, (idle, wall_ms, dev_ms, top) in breakdown.items():
+        print(f"universal breakdown, one warm {what} under the profiler: "
+              f"{wall_ms:.3f} ms wall, device {dev_ms:.3f} ms (idle share "
+              f"{idle:.3f}); top device ops ms: {top}", flush=True)
+    return counts
+
+
+def member_triples(torch, sk):
+    """A sketch's member slots as a sorted list of (key, weight, prob)."""
+    m = sk.member & sk.valid
+    return sorted(zip(sk.keys[m].tolist(), sk.weights[m].tolist(),
+                      sk.probs[m].tolist()))
 
 
 # ---------------------------------------------------------------------------
@@ -834,18 +1079,22 @@ def main() -> int:
 
     kstats = phase_kernels(torch, C, K, dev)
     kstats["servicecost"] = phase_k5(torch, K, dev)
+    kstats["rankcount"] = phase_k6(torch, C, K, dev)
     counts = phase_serving(torch, C, K, pool_mod, query_mod)
     phase_durability(C, pool_mod)
     metric_counts = phase_metric(torch, C, K, dev)
+    universal_counts = phase_universal(torch, C, K, dev)
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("blockselect.cu", "blockselect.py:41"),
                "compact": ("compact.cu", "compact.py:39"),
                "segquery": ("segquery.cu", "segquery.py:44"),
-               "servicecost": ("servicecost.cu", "servicecost.py:48")}
+               "servicecost": ("servicecost.cu", "servicecost.py:48"),
+               "rankcount": ("rankcount.cu", "rankcount.py:30")}
+    main_path = {"servicecost": metric_counts, "rankcount": universal_counts}
     rows = []
     for name, (cu, tpu) in sources.items():
-        launches = (metric_counts if name == "servicecost" else counts)[name]
+        launches = main_path.get(name, counts)[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{cu}",
                      "replaces": f"src/repro/kernels/{tpu}",

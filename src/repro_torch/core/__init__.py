@@ -1,10 +1,23 @@
-"""Core library of the port: statistic functions, hashing, bottom-k
-primitives, predicates, estimators, the MultiSketch slab, and the metric
-tier's service-cost wire format and universal metric samples."""
-from .funcs import COUNT, SUM, StatFn, cap, combo, moment, thresh
+"""Core library of the port: statistic functions, hashing, pps and
+bottom-k samples, multi-objective samples, the universal monotone and
+capping samples, mergeable sketches, predicates, estimators, the
+MultiSketch slab, and the metric tier's service-cost wire format and
+universal metric samples."""
+from .funcs import COUNT, SUM, StatFn, cap, combo, disparity, moment, thresh
 from .hashing import hash_u32, ppswor_rank, rank_of, uniform01
-from .bottomk import conditional_prob, f_seed, kth_and_tau
-from .estimators import cv_bound, estimate_many
+from .pps import PpsSample, pps_probabilities, pps_sample
+from .bottomk import (BottomK, bottomk_sample, conditional_prob, f_seed,
+                      kth_and_tau)
+from .multi_objective import (MultiBottomK, MultiPps, multi_bottomk_sample,
+                              multi_pps_sample)
+from .universal import (UniversalSample, expected_size_bound,
+                        universal_monotone_ref, universal_monotone_sample)
+from .capping import (CappingSample, capping_size_bound,
+                      universal_capping_ref, universal_capping_sample)
+from .estimators import (cv_bound, estimate, estimate_many,
+                         estimate_segments, exact, exact_segments)
+from .merge import (Sketch, build_sketch, merge_many, merge_sketches,
+                    sketch_capacity, sketch_estimate)
 from .predicates import (EVERYTHING, SegmentPredicate, encode_predicates,
                          hash31, hash_fraction, key_mask, key_range,
                          never_row, pad_table, predicate_matrix)
@@ -27,10 +40,19 @@ from .costs import (MODE_BALL, MODE_COST, CostTable, ServiceCostQuery,
                     pad_cost_table, service_cost_values)
 
 __all__ = [
-    "StatFn", "COUNT", "SUM", "cap", "thresh", "moment", "combo",
+    "StatFn", "COUNT", "SUM", "cap", "thresh", "moment", "combo", "disparity",
     "hash_u32", "uniform01", "ppswor_rank", "rank_of",
-    "conditional_prob", "f_seed", "kth_and_tau",
-    "estimate_many", "cv_bound",
+    "PpsSample", "pps_probabilities", "pps_sample",
+    "BottomK", "bottomk_sample", "conditional_prob", "f_seed", "kth_and_tau",
+    "MultiPps", "MultiBottomK", "multi_pps_sample", "multi_bottomk_sample",
+    "UniversalSample", "universal_monotone_ref", "universal_monotone_sample",
+    "expected_size_bound",
+    "CappingSample", "universal_capping_ref", "universal_capping_sample",
+    "capping_size_bound",
+    "estimate", "estimate_many", "estimate_segments", "exact",
+    "exact_segments", "cv_bound",
+    "Sketch", "build_sketch", "merge_sketches", "merge_many",
+    "sketch_capacity", "sketch_estimate",
     "SegmentPredicate", "EVERYTHING", "key_range", "key_mask",
     "hash_fraction", "encode_predicates", "pad_table", "never_row",
     "hash31", "predicate_matrix",

@@ -1,16 +1,20 @@
 """Bottom-k (order) sampling primitives: priority and ppswor.
 
 Port of ``repro/core/bottomk.py``: f-seed(x) = r_x / f(w_x), the k-th and
-(k+1)-th smallest seeds, and the conditional inclusion probabilities
+(k+1)-th smallest seeds, the bottom-k sample w.r.t. one f, and the
+conditional inclusion probabilities
     priority: p_x = min(1, f(w_x) * tau)
     ppswor:   p_x = 1 - exp(-f(w_x) * tau)
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from repro_torch import keyed_inputs
 from .funcs import StatFn
-from .hashing import rank_of
+from .hashing import rank_of, uniform01
 
 
 def f_seed(weights, active, f: StatFn, u, scheme: str) -> torch.Tensor:
@@ -42,3 +46,31 @@ def conditional_prob(fv, tau, scheme: str) -> torch.Tensor:
         return torch.clamp_max(t, 1.0)
     # ppswor; tau may be +inf (fewer than k+1 active keys) -> p = 1
     return torch.where(torch.isinf(t), torch.ones_like(t), -torch.expm1(-t))
+
+
+class BottomK(NamedTuple):
+    member: torch.Tensor   # bool [n] — x in S (the k smallest f-seeds)
+    prob: torch.Tensor     # float32 [n] — conditional p_x for members, else 0
+    tau: torch.Tensor      # float32 [] — (k+1)-th smallest f-seed
+    seeds: torch.Tensor    # float32 [n] — the f-seeds (inf for inactive)
+
+
+def bottomk_sample(keys, weights, active, f: StatFn, k: int,
+                   scheme: str = "ppswor", seed=0, device=None) -> BottomK:
+    """Bottom-k sample w.r.t. f, with conditional inclusion probabilities.
+
+    For member x the k-th smallest f-seed among OTHER keys equals tau (the
+    global (k+1)-th smallest), the conditioning of the paper (§2.3). Runs
+    on ``device``, else on the device of a tensor ``keys``, else (host
+    arrays) on the card.
+    """
+    keys, w, act = keyed_inputs(keys, weights, active, device)
+    u = uniform01(keys, seed)
+    seeds = f_seed(w, act, f, u, scheme)
+    kth, tau = kth_and_tau(seeds, k)
+    member = (seeds < kth) | ((seeds == kth) & torch.isfinite(seeds))
+    fv = f(w)
+    fv = torch.where(act, fv, torch.zeros_like(fv))
+    p = torch.where(member, conditional_prob(fv, tau, scheme),
+                    torch.zeros_like(fv))
+    return BottomK(member=member, prob=p, tau=tau, seeds=seeds)

@@ -33,8 +33,8 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import device_of
 from .funcs import powf
-from .multi_sketch import _device_of
 
 MODE_COST = 0
 MODE_BALL = 1
@@ -161,7 +161,7 @@ def table_to(table: CostTable, device) -> CostTable:
 def points_to(points, device=None) -> torch.Tensor:
     """Host array or tensor -> contiguous float32 [n, dim] on ``device``
     (default: the tensor's own device, else the card)."""
-    dev = _device_of(points, device)
+    dev = device_of(points, device)
     if not isinstance(points, torch.Tensor):
         points = torch.from_numpy(np.ascontiguousarray(points, np.float32))
     return points.to(device=dev, dtype=torch.float32).contiguous()

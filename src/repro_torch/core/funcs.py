@@ -2,7 +2,7 @@
 
 Port of ``repro/core/funcs.py``: count, sum, thresh_T, cap_T, moment_p and
 non-negative linear combinations, as frozen (hashable) descriptors applied
-to float32 tensors.
+to float32 tensors, and the disparity rho(f, g) of two of them.
 """
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from repro_torch import as_1d, device_of
 
 
 def powf(base: torch.Tensor, exponent) -> torch.Tensor:
@@ -108,3 +110,20 @@ def combo(*terms: Tuple[float, StatFn]) -> StatFn:
             raise ValueError("closure (Thm 4.1) requires non-negative "
                              "coefficients")
     return StatFn("combo", 0.0, tuple((float(c), g) for c, g in terms))
+
+
+def disparity(f: StatFn, g: StatFn, w_grid, device=None) -> torch.Tensor:
+    """rho(f,g) = max_w f/g * max_w g/f over a weight grid (paper §2.4).
+
+    Evaluated numerically on ``w_grid`` (w > 0); rho >= 1 with equality iff
+    g = c f on the grid. Runs on ``device``, else on the grid's device when
+    it is a tensor, else (a host array) on the card.
+    """
+    w = as_1d(w_grid, torch.float32, device_of(w_grid, device))
+    fv = f(w)
+    gv = g(w)
+    ok = (fv > 0) & (gv > 0)
+    zero = torch.zeros_like(fv)
+    r1 = torch.where(ok, fv / torch.clamp_min(gv, 1e-30), zero).max()
+    r2 = torch.where(ok, gv / torch.clamp_min(fv, 1e-30), zero).max()
+    return r1 * r2

@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import as_1d, device_of, lexsort, resolve_device
 from .bottomk import conditional_prob, f_seed
 from .estimators import estimate_many
 from .funcs import StatFn
@@ -108,23 +108,6 @@ class MultiSketch(NamedTuple):
     aux: torch.Tensor      # bool [c]
     valid: torch.Tensor    # bool [c]
     taus: torch.Tensor     # float32 [nf]
-
-
-def _device_of(x, device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if isinstance(x, torch.Tensor):
-        return x.device
-    return resolve_device(None)
-
-
-def _as(x, dtype: torch.dtype, device) -> torch.Tensor:
-    """Host array or tensor -> a 1-D tensor of ``dtype`` on ``device``."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(x).reshape(-1),
-            dtype=np.dtype(str(dtype).replace("torch.", ""))))
-    return x.reshape(-1).to(device=device, dtype=dtype).contiguous()
 
 
 def multisketch_empty(spec: MultiSketchSpec, device=None) -> MultiSketch:
@@ -256,11 +239,8 @@ def _rebuild(spec: MultiSketchSpec, keys, weights, valid,
     """Dedup (keep max weight), re-select, compact: the shared exact-merge
     core of absorb and merge."""
     # the reference's lexsort((-w, ~valid, keys)): key asc, VALID first,
-    # weight desc — three stable passes, the primary key last
-    order = torch.sort(-weights, stable=True).indices
-    order = order[torch.sort((~valid[order]).to(torch.uint8),
-                             stable=True).indices]
-    order = order[torch.sort(keys[order], stable=True).indices]
+    # weight desc
+    order = lexsort((-weights, (~valid).to(torch.uint8), keys))
     sk, sw, sv = keys[order], weights[order], valid[order]
     dup = torch.cat([torch.zeros((1,), dtype=torch.bool, device=sk.device),
                      sk[1:] == sk[:-1]])
@@ -333,11 +313,11 @@ def multisketch_build(spec: MultiSketchSpec, keys, weights, active=None,
     path, as in the reference. ``device``: where host inputs go (default:
     the inputs' device, else the card).
     """
-    dev = _device_of(keys, device)
-    keys = _as(keys, torch.int32, dev)
-    weights = _as(weights, torch.float32, dev)
+    dev = device_of(keys, device)
+    keys = as_1d(keys, torch.int32, dev)
+    weights = as_1d(weights, torch.float32, dev)
     active = (torch.ones(keys.shape, dtype=torch.bool, device=dev)
-              if active is None else _as(active, torch.bool, dev))
+              if active is None else as_1d(active, torch.bool, dev))
     if seed is not None:
         return multisketch_finalize(
             _build_body(spec, keys, weights, active, False, seed=int(seed)),
@@ -353,10 +333,10 @@ def multisketch_absorb_inline(spec: MultiSketchSpec, state: MultiSketch,
                               use_kernels: bool = False) -> MultiSketch:
     """Fold body without the probs finalize: state ∪ chunk."""
     dev = state.keys.device
-    keys = _as(keys, torch.int32, dev)
-    weights = _as(weights, torch.float32, dev)
+    keys = as_1d(keys, torch.int32, dev)
+    weights = as_1d(weights, torch.float32, dev)
     active = (torch.ones(keys.shape, dtype=torch.bool, device=dev)
-              if active is None else _as(active, torch.bool, dev))
+              if active is None else as_1d(active, torch.bool, dev))
     return _rebuild(spec, torch.cat([state.keys, keys]),
                     torch.cat([state.weights, weights]),
                     torch.cat([state.valid, active]), use_kernels)
@@ -408,9 +388,9 @@ def multisketch_absorb_slabs(state: MultiSketch, delta_keys, delta_weights,
     """``multisketch_absorb_into`` taking the delta's three consumed leaves
     ([c] or [m, c]) directly."""
     dev = state.keys.device
-    dk = _as(delta_keys, torch.int32, dev)
-    dw = _as(delta_weights, torch.float32, dev)
-    dv = _as(delta_valid, torch.bool, dev)
+    dk = as_1d(delta_keys, torch.int32, dev)
+    dw = as_1d(delta_weights, torch.float32, dev)
+    dv = as_1d(delta_valid, torch.bool, dev)
     if pad_deltas and dk.shape[0] != spec.cap:
         dk, dw, dv = delta_slab_pad(dk, dw, dv, spec.cap)
     return multisketch_finalize(

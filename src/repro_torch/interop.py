@@ -6,6 +6,10 @@ those arrays (numpy, or anything ``np.asarray`` accepts) into the port's
 ``MultiSketch`` on a device; ``to_arrays`` gives the 8 fields back as
 numpy arrays, from which the reference rebuilds its own slab.
 
+A reference ``Sketch`` (the universal monotone sample's wire format) is 5
+arrays (keys, weights, probs, member, valid) plus its k and hash seed:
+``sketch_from_arrays`` / ``sketch_to_arrays`` carry it the same way.
+
 A reference ``ClusterReplica`` (the hand-off unit of ``ClusterEngine``)
 travels the same way: ``cluster_replica_from_arrays`` takes its sketch
 fields, coords, anchor coords, eps, norm, next_key, epoch and config and
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.merge import Sketch
 from repro_torch.core.multi_sketch import MultiSketch
 from repro_torch.launch.cluster import ClusterReplica
 
@@ -46,6 +51,26 @@ def to_arrays(sk: MultiSketch) -> tuple:
     """The port's MultiSketch -> its 8 fields as numpy arrays."""
     return tuple(x.detach().cpu().numpy().astype(_DTYPES[name], copy=True)
                  for name, x in zip(MultiSketch._fields, sk))
+
+
+def sketch_from_arrays(fields: Sequence, device=None) -> Sketch:
+    """(keys, weights, probs, member, valid, k, seed) -> the port's
+    Sketch on a device."""
+    if len(fields) != len(Sketch._fields):
+        raise ValueError(f"expected {len(Sketch._fields)} fields, "
+                         f"got {len(fields)}")
+    dev = resolve_device(device)
+    arrays = (torch.from_numpy(np.array(x, dtype=_DTYPES[name])).to(dev)
+              for name, x in zip(Sketch._fields[:5], fields))
+    return Sketch(*arrays, k=int(fields[5]), seed=int(fields[6]))
+
+
+def sketch_to_arrays(sk: Sketch) -> tuple:
+    """The port's Sketch -> (keys, weights, probs, member, valid) as numpy
+    arrays, then k and seed."""
+    return tuple(x.detach().cpu().numpy().astype(_DTYPES[name], copy=True)
+                 for name, x in zip(Sketch._fields[:5], sk)) + (sk.k,
+                                                                 sk.seed)
 
 
 def _f32(x, dev):

@@ -109,6 +109,8 @@ _SIGNATURES = {
     # pts, probs, member, pw (or NULL), centers, cvalid, mu, param, mode,
     # out, c, dim, q, cmax, threads, smem bytes, stream
     "repro_servicecost": (_VP,) * 10 + (_I,) * 6 + (_VP,),
+    # w, s_h, s_l, active, h, l, n, stream
+    "repro_rankcount": (_VP,) * 6 + (_I, _VP),
 }
 
 

@@ -7,7 +7,10 @@ test module either: a site-packages ``tests`` package may shadow ours):
 
 Every test carries the ``gpu`` marker and skips where there is no card.
 Tolerances: one libm on both sides, so seeds and f-values within 2 ulp
-(measured 0), selections and priorities exact, estimates rtol 1e-5; K5's
+(measured 0), selections, priorities and K6's rank counts exact, the
+universal samples and sketch folds on the card bit-equal to the same calls
+on the CPU (capping under ppswor where no two active r/w lie within 8 ulp:
+the CPU's log1p may round r differently), estimates rtol 1e-5; K5's
 ball-mode estimates within that rtol plus the HT weight of the slots whose
 d2 lies within 8 eps32 (|x|^2 + |c|^2) of r^2 (the two sides sum the dot
 products in another order)."""
@@ -22,6 +25,8 @@ from repro_torch.kernels import compact as kc                 # noqa: E402
 from repro_torch.kernels import seeds as ks                   # noqa: E402
 from repro_torch.kernels import segquery as kq                # noqa: E402
 from repro_torch.kernels import servicecost as ksc            # noqa: E402
+from repro_torch.kernels import rankcount as krc              # noqa: E402
+import repro_torch.core as T                                  # noqa: E402
 from repro_torch.core import costs as CO                      # noqa: E402
 from repro_torch.core import predicates as P                  # noqa: E402
 
@@ -194,3 +199,102 @@ def test_servicecost_kernel_is_deterministic_and_batch_independent(cuda):
     got = K.service_cost_slab(*slab, null)
     assert torch.equal(got[:3], full[:3])
     assert torch.equal(got[3:], torch.zeros(13, device=cuda))
+
+
+# ----------------------------------------------------------------------- K6
+def _k6_operands(dev, n, seed, inactive=0.1):
+    rng = np.random.default_rng(seed)
+    w = rng.choice(np.array([0.5, 1.0, 2.0, 3.5], np.float32), n)
+    w[: n // 2] = rng.lognormal(0, 1, n // 2).astype(np.float32)   # + ties
+    sh = rng.random(n).astype(np.float32)
+    sh[::5] = 0.25                                                 # ties
+    sl = rng.exponential(1.0, n).astype(np.float32)
+    act = rng.random(n) >= inactive
+    return _on(dev, np.where(act, w, 0).astype(np.float32), sh, sl, act)
+
+
+@pytest.mark.parametrize("n,inactive", [(1, 0.0), (255, 0.1), (256, 0.1),
+                                        (257, 0.1), (1000, 0.1),
+                                        (5003, 0.1), (4096, 1.0)],
+                         ids=["n1", "255", "256", "257", "1000", "5003",
+                              "all_inactive"])
+def test_rankcount_kernel_matches_plain(cuda, n, inactive):
+    ops_ = _k6_operands(cuda, n, n, inactive)
+    before = K.launch_counts()["rankcount"]
+    h, l = K.rank_counts(*ops_)
+    assert K.launch_counts()["rankcount"] == before + 1
+    hp, lp = krc.rank_counts_plain(*ops_)
+    assert torch.equal(h, hp) and torch.equal(l, lp)
+    if inactive == 1.0:
+        assert int(h.abs().sum() + l.abs().sum()) == 0
+
+
+def _rw_gap_ok(keys, w, act, seed) -> bool:
+    """No two active keys' ppswor r/w within 8 ulp (the CPU's and the
+    card's log1p may round r apart by an ulp or two)."""
+    u = T.uniform01(torch.from_numpy(keys), seed)
+    rw = (T.ppswor_rank(u) / torch.from_numpy(w))[torch.from_numpy(act)]
+    iv = torch.sort(rw).values.view(torch.int32).to(torch.int64)
+    return bool(torch.all(iv[1:] - iv[:-1] > 8))
+
+
+def _universal_inputs(n, seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.permutation(4 * n)[:n].astype(np.int32)
+    w = np.clip(rng.lognormal(0, 1, n), 0.1, 10).astype(np.float32)
+    w[::9] = 1.0                                                   # ties
+    return keys, w, rng.random(n) > 0.05
+
+
+@pytest.mark.parametrize("scheme,n", [("priority", 3000), ("ppswor", 600)])
+def test_capping_on_card_equals_cpu(cuda, scheme, n):
+    """ops.universal_capping_kernel (K6) and universal_capping_sample on
+    the card against the same calls on the CPU. Under ppswor the r/w gap
+    precondition holds at this n (asserted)."""
+    keys, w, act = _universal_inputs(n, 1)
+    if scheme == "ppswor":
+        assert _rw_gap_ok(keys, w, act, 5)
+    on_card = K.ops.universal_capping_kernel(keys, w, act, 32, scheme,
+                                             seed=5, device=cuda)
+    on_cpu = K.ops.universal_capping_kernel(keys, w, act, 32, scheme,
+                                            seed=5, device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    card = T.universal_capping_sample(keys, w, act, 32, m_cap=n,
+                                      scheme=scheme, seed=5, device=cuda)
+    cpu = T.universal_capping_sample(keys, w, act, 32, m_cap=n,
+                                     scheme=scheme, seed=5, device="cpu")
+    for name in ("member", "aux", "hl"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+    assert torch.equal(card.member, on_card[0])
+    if scheme == "priority":
+        assert torch.equal(card.prob.cpu(), cpu.prob)
+    else:
+        assert_ulp(card.prob.cpu(), cpu.prob, 4, "capping prob")
+
+
+def test_universal_monotone_and_merge_fold_on_card_equal_cpu(cuda):
+    """The universal monotone sample and a build_sketch + merge_sketches
+    fold over 8 shards, bit for bit on the card and on the CPU."""
+    keys, w, act = _universal_inputs(20_000, 2)
+    w = np.random.default_rng(3).lognormal(0, 2, 20_000).astype(np.float32)
+    for name, a, b in zip(
+            T.UniversalSample._fields,
+            T.universal_monotone_sample(keys, w, act, 64, seed=42,
+                                        device=cuda),
+            T.universal_monotone_sample(keys, w, act, 64, seed=42,
+                                        device="cpu")):
+        assert torch.equal(a.cpu(), b), name
+    cap = T.sketch_capacity(20_000, 64)
+    folds = {}
+    for dev in (cuda, torch.device("cpu")):
+        merged = None
+        for p in np.array_split(np.arange(20_000), 8):
+            sk = T.build_sketch(keys[p], w[p], act[p], 64, cap, seed=42,
+                                device=dev)
+            merged = sk if merged is None else T.merge_sketches(
+                merged, sk, donate=dev.type == "cuda")
+        folds[dev.type] = merged
+    for name in ("keys", "weights", "probs", "member", "valid"):
+        assert torch.equal(getattr(folds["cuda"], name).cpu(),
+                           getattr(folds["cpu"], name)), name

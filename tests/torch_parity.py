@@ -44,6 +44,22 @@ XLA's float32 ops:
     and probs carry v's ulps on top of their own bounds
     (``assert_metric_slab_parity``); measured over 3 absorbs x 2 schemes x
     mu in {1, 2}: weights 3, seeds 4, taus 2, probs 4 ulp.
+
+The universal tier adds:
+
+  * the universal monotone sample, its scan and sketches depend on u and
+    w alone, which are exact, so member, aux, h, prob (a u value) and
+    every Sketch field are held exactly;
+  * pps probabilities k f(w) / sum f(w) share a sum taken in another
+    order: EST_RTOL (measured 3 ulp over 400 keys), and membership u < p
+    is exact for keys whose u is not within that window of p;
+  * the capping sample's l counts compare r/w across keys, and under
+    ppswor r/w is a seed (<= SEED_ULP from XLA's). Two keys can swap
+    order only when their r/w lie within 2 * SEED_ULP ulp of each other,
+    so the integer fields are exact whenever no two active keys do
+    (``rw_gap_ok``, asserted by the tests as a precondition, never a
+    looser comparison); capping probs -expm1(-w t) within PROB_ULP
+    (measured 3).
 """
 from __future__ import annotations
 
@@ -159,3 +175,13 @@ def assert_metric_slab_parity(ref, port, what: str = ""):
     assert_ulp(ref.taus, port.taus, SEED_ULP + ANCHOR_V_ULP, f"{what}taus")
     assert_ulp(ref.probs, port.probs, PROB_ULP + ANCHOR_V_ULP,
                f"{what}probs")
+
+
+def rw_gap_ok(r, w, active) -> bool:
+    """True when no two active keys' r / w (float32) lie within
+    2 * SEED_ULP ulp of each other, so their order is the same on both
+    sides of a ppswor parity test."""
+    rw = (np.asarray(r, np.float32)
+          / np.asarray(w, np.float32))[np.asarray(active, bool)]
+    iv = np.sort(rw).view(np.int32).astype(np.int64)
+    return bool(np.all(np.diff(iv) > 2 * SEED_ULP))
