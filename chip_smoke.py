@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; nothing is caught):
    {1, 2, 1.5} and in ball mode, run-to-run and alone-vs-batch bits; K6:
    exact at n = 65,536 and on 4,096 sampled rows at n = 2^20), with the
    kernel's, the plain version's and, where one exists, a single PyTorch
-   call's time (CUDA events, median of 21; K6 of 5);
+   call's time (CUDA events, median of 21; K6 of 5; K5 also at Q = 16),
+   and the registers, local (spill) bytes and static shared memory of K4
+   and K5 from ``cudaFuncGetAttributes`` with their launch plans;
 2. serving through ``EnginePool``: 3 tenants x 4 shards, 16 chunks of
    1,048,576 rows each, interleaved with 32 submitted query batches
    (B = 128, all 8 objectives) per tenant; every response FRESH, the
@@ -676,7 +678,22 @@ def phase_k5(torch, K, dev):
           f"(1, 2, 1.5) and ball; run-to-run and alone-vs-batch bits",
           flush=True)
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                bound_by=b_by, library_ms=t_l)
+                bound_by=b_by, library_ms=t_l, ms_q16=t_16)
+
+
+def kernel_attributes(K):
+    """Print the registers, local (spill) bytes and static shared memory
+    of K4 and K5 (``cudaFuncGetAttributes``) and their launch plans at the
+    main path's shapes."""
+    from repro_torch.kernels import segquery, servicecost
+    from repro_torch.kernels._util import kernel_attrs
+    c4, c5 = 8201, SLAB_K + 2
+    print("kernel attributes: " + "; ".join(
+        f"{name} {kernel_attrs(name)}" for name in ("segquery",
+                                                     "servicecost"))
+        + f"; K4 plan at c={c4} (slices, slice_len) "
+        f"{segquery.launch_plan(c4)}; K5 plan at c={c5} dim={CENSUS_DIM} "
+        f"{servicecost.launch_plan(c5, CENSUS_DIM, 20)}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1079,6 +1096,7 @@ def main() -> int:
 
     kstats = phase_kernels(torch, C, K, dev)
     kstats["servicecost"] = phase_k5(torch, K, dev)
+    kernel_attributes(K)
     kstats["rankcount"] = phase_k6(torch, C, K, dev)
     counts = phase_serving(torch, C, K, pool_mod, query_mod)
     phase_durability(C, pool_mod)

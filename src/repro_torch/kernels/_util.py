@@ -103,12 +103,16 @@ _SIGNATURES = {
     "repro_blockselect": (_VP, _VP, _VP, _I, _I, _I, _I, _VP),
     # keys, member, keep, w, pri, n, stream
     "repro_priority": (_VP, _VP, _VP, _VP, _VP, _I, _VP),
-    # keys, w, p, member, table, out, c, b, nf, kinds*, params*, stream
-    "repro_segquery": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP,
-                       _VP),
+    # keys, w, p, member, table, out, scratch, tickets, c, b, slices,
+    # slice_len, nf, kinds*, params*, stream
+    "repro_segquery": (_VP,) * 8 + (_I,) * 5 + (_VP, _VP, _VP),
     # pts, probs, member, pw (or NULL), centers, cvalid, mu, param, mode,
-    # out, c, dim, q, cmax, threads, smem bytes, stream
-    "repro_servicecost": (_VP,) * 10 + (_I,) * 6 + (_VP,),
+    # out, scratch, tickets, c, dim, q, cmax, slices, slice_len, rows,
+    # stages, cpcap, smem bytes, stream
+    "repro_servicecost": (_VP,) * 12 + (_I,) * 10 + (_VP,),
+    # int[3] out: registers, local bytes, static shared bytes
+    "repro_segquery_attrs": (_VP,),
+    "repro_servicecost_attrs": (_VP,),
     # w, s_h, s_l, active, h, l, n, stream
     "repro_rankcount": (_VP,) * 6 + (_I, _VP),
 }
@@ -127,6 +131,35 @@ def kernel_lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+_tickets: dict = {}
+
+
+def tile_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least n zeroed int32 tickets for kernels that split a tile's
+    reduction over blocks (``last_block_of_tile`` in common.cuh): one
+    buffer per (card, stream), made once; every launch leaves the tickets
+    it used at zero again."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (idx, torch.cuda.current_stream(idx).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32,
+                          device=torch.device("cuda", idx))
+        _tickets[key] = buf
+    return buf
+
+
+def kernel_attrs(name: str) -> dict:
+    """Registers per thread, local (spill) bytes and static shared-memory
+    bytes of a kernel, from ``cudaFuncGetAttributes`` (``name``: a kernel
+    with a ``repro_<name>_attrs`` entry point)."""
+    vals = (ctypes.c_int * 3)()
+    raise_on_error(name, getattr(kernel_lib(), f"repro_{name}_attrs")(
+        ctypes.addressof(vals)))
+    return dict(regs=vals[0], local_bytes=vals[1], static_smem=vals[2])
 
 
 def check_cuda(name: str, x: torch.Tensor, dtype: torch.dtype,

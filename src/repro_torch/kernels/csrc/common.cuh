@@ -51,3 +51,24 @@ __device__ __forceinline__ float stat_fval(int kind, float param, float w) {
     default: return w > 0.0f ? powf(fmaxf(w, 1e-30f), param) : 0.0f;
   }
 }
+
+// The cross-block step of a kernel that splits a reduction over `nranks`
+// blocks of one tile (blockIdx.x = rank): each block stores its partials
+// to global scratch, then calls this. It returns true, in every thread, in
+// the one block that finishes the tile last; that block reads the tile's
+// partials back with __ldcg (from L2, past the non-coherent L1) and adds
+// them in rank order, so the sum is the same whichever block finishes
+// last. The atomic only elects that block (a ticket per tile, reset to 0
+// for the next launch); no sum is ever formed by atomics.
+__device__ __forceinline__ bool last_block_of_tile(unsigned int* ticket,
+                                                   int nranks) {
+  __shared__ bool last;
+  __threadfence();  // this thread's partials are visible device-wide
+  __syncthreads();  // ... and every thread's
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == static_cast<unsigned int>(nranks - 1);
+    if (last) *ticket = 0u;  // no other block of this launch touches it
+  }
+  __syncthreads();
+  return last;
+}

@@ -5,102 +5,180 @@
 // f_j(w) / p (members only) where predicate b selects the slot's key
 // (range, bitmask, or a range over hash31(key, salt)).
 //
-// Bound on the H100: launch latency. The slab is c * 13 bytes (~107 KB at
-// c = 8201) and the answer F * B floats; the work is c * B predicate tests
-// and c * B * F additions. Design: one 256-thread block per tile of 4
-// predicates (all objectives). Each block walks the whole slab from L2 in
-// a fixed strided order, keeps its [F, 4] sums in registers, then reduces
-// them across threads by warp shuffles and one fixed pass over the 8 warps.
-// No atomics and no split of the slab across blocks: the order of every
-// addition depends only on c, so an answer is run-to-run deterministic and
-// bit-identical whichever other predicates share its batch (the pool's
-// coalescing contract). The contraction is plain fp32 adds (no TF32, no
-// library GEMM).
+// Bound on the H100: latency, not bytes or operations. The slab is
+// c * 13 bytes (~107 KB at c = 8201) and the work c * B predicate tests
+// plus c * B * F adds (34 MFLOP at B = 256, ~0.5 us at the fp32 rate); a
+// launch, one pass over the slab from L2 and one reduction cost more.
+//
+// Design: a tile of 16 predicates (one warp each) is split over up to 16
+// blocks, one per slice of the slab. The slice count comes from c alone
+// (launch_plan in segquery.py: slices of ~512 slots), so the whole card
+// works at B = 256 (16 x 16 blocks, two per SM) and a slot's contributions
+// f_j(w) * ht are computed once per block: staged with the keys in shared
+// memory (up to 1152 slots per pass, all of a thread's loads issued
+// before any is used), not recomputed per predicate. Each warp's lanes
+// stride over the staged slots in a fixed order (4 slots' tests, their
+// independent hashes, before their adds), keep acc[F] in registers and close
+// with a fixed shuffle tree. Every block stores its [16, F] partials to
+// scratch; the block that finishes its tile last adds the slices'
+// partials in rank order and writes out[j, b] (last_block_of_tile). The
+// order of every addition depends on c alone, never on B, on which
+// predicates share a tile or on which block finishes last: an answer is
+// run-to-run deterministic and bit-identical alone or in any batch (the
+// pool's coalescing contract). Plain fp32 adds, no atomics on the sums, no
+// TF32, no library call. The tile's blocks are not a thread-block
+// cluster summed through distributed shared memory: a cluster of 8 (one
+// block per SM) reaches only 120 of the H100's 132 SMs, and it would cap
+// the split at 8 (tools/kernel_probe.py).
 #include "common.cuh"
 
-#define TILE_B 4
-#define QUERY_THREADS 256
+#define Q_WARPS 16                 // predicates per tile, one warp each
+#define Q_THREADS (32 * Q_WARPS)
+#define Q_CHUNK 1152               // slots staged per pass over a slice
+#define Q_PER ((Q_CHUNK + Q_THREADS - 1) / Q_THREADS)
+#define Q_BATCH 4                  // slots a lane tests before it adds
 #define PRED_COLS 6
+#define Q_PARTS (Q_WARPS * REPRO_MAX_OBJECTIVES)
 
-__global__ void __launch_bounds__(QUERY_THREADS)
+__global__ void __launch_bounds__(Q_THREADS)
 segquery_kernel(const int32_t* __restrict__ keys, const float* __restrict__ w,
                 const float* __restrict__ p,
                 const uint8_t* __restrict__ member,
                 const int32_t* __restrict__ table, float* __restrict__ out,
-                int c, int b, Objectives obj) {
-  __shared__ int32_t tab[TILE_B][PRED_COLS];
-  __shared__ float red[QUERY_THREADS / 32][REPRO_MAX_OBJECTIVES][TILE_B];
-  const int b0 = blockIdx.x * TILE_B;
-  if (threadIdx.x < TILE_B * PRED_COLS) {
-    const int r = threadIdx.x / PRED_COLS, col = threadIdx.x % PRED_COLS;
-    // rows past B never match (lo = 1 > hi = 0)
-    tab[r][col] = b0 + r < b ? table[(b0 + r) * PRED_COLS + col]
-                             : (col == 0 ? 1 : 0);
+                float* __restrict__ scratch,
+                unsigned int* __restrict__ tickets, int c, int b,
+                int slice_len, Objectives obj) {
+  __shared__ int32_t ks[Q_CHUNK];
+  __shared__ float cs[REPRO_MAX_OBJECTIVES][Q_CHUNK];
+  const int rank = blockIdx.x, nranks = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int pb = blockIdx.y * Q_WARPS + warp;  // this warp's predicate
+  // rows past B never match (lo = 1 > hi = 0)
+  int32_t lo = 1, hi = 0, mask = 0, want = 0, salt = 0, flags = 0;
+  if (pb < b) {
+    const int32_t* t = table + static_cast<size_t>(pb) * PRED_COLS;
+    lo = t[0];
+    hi = t[1];
+    mask = t[2];
+    want = t[3];
+    salt = t[4];
+    flags = t[5];
   }
-  __syncthreads();
-  float acc[REPRO_MAX_OBJECTIVES][TILE_B];
-#pragma unroll
-  for (int j = 0; j < REPRO_MAX_OBJECTIVES; ++j)
-#pragma unroll
-    for (int t = 0; t < TILE_B; ++t) acc[j][t] = 0.0f;
+  const long long s0_ll = static_cast<long long>(rank) * slice_len;
+  const int s0 = s0_ll < c ? static_cast<int>(s0_ll) : c;
+  const int s1 = slice_len < c - s0 ? s0 + slice_len : c;
 
-  for (int i = threadIdx.x; i < c; i += QUERY_THREADS) {
-    const int32_t k = keys[i];
-    const float wi = w[i];
-    const float ht = member[i] != 0 ? 1.0f / fmaxf(p[i], 1e-30f) : 0.0f;
-    float contrib[REPRO_MAX_OBJECTIVES];
+  float acc[REPRO_MAX_OBJECTIVES];
 #pragma unroll
-    for (int j = 0; j < REPRO_MAX_OBJECTIVES; ++j)
-      contrib[j] =
-          j < obj.nf ? stat_fval(obj.kind[j], obj.param[j], wi) * ht : 0.0f;
+  for (int j = 0; j < REPRO_MAX_OBJECTIVES; ++j) acc[j] = 0.0f;
+
+  for (int base = s0; base < s1; base += Q_CHUNK) {
+    const int n = min(Q_CHUNK, s1 - base);
+    __syncthreads();  // the previous pass's slots are consumed
+    int32_t kv[Q_PER];
+    float wv[Q_PER], pv[Q_PER];
+    bool mv[Q_PER];
 #pragma unroll
-    for (int t = 0; t < TILE_B; ++t) {
-      int32_t v = k;
-      if (tab[t][5] & 1)
-        v = static_cast<int32_t>(
-            hash_u32(static_cast<uint32_t>(k),
-                     static_cast<uint32_t>(tab[t][4])) >> 1);
-      const bool sel = v >= tab[t][0] && v <= tab[t][1] &&
-                       (v & tab[t][2]) == tab[t][3] && k >= 0;
-      if (sel) {
+    for (int u = 0; u < Q_PER; ++u) {
+      const int i = threadIdx.x + u * Q_THREADS;
+      if (i < n) {
+        kv[u] = keys[base + i];
+        wv[u] = w[base + i];
+        pv[u] = p[base + i];
+        mv[u] = member[base + i] != 0;
+      }
+    }
 #pragma unroll
-        for (int j = 0; j < REPRO_MAX_OBJECTIVES; ++j) acc[j][t] += contrib[j];
+    for (int u = 0; u < Q_PER; ++u) {
+      const int i = threadIdx.x + u * Q_THREADS;
+      if (i < n) {
+        const float ht = mv[u] ? 1.0f / fmaxf(pv[u], 1e-30f) : 0.0f;
+        ks[i] = kv[u];
+#pragma unroll
+        for (int j = 0; j < REPRO_MAX_OBJECTIVES; ++j)
+          if (j < obj.nf)
+            cs[j][i] = stat_fval(obj.kind[j], obj.param[j], wv[u]) * ht;
+      }
+    }
+    __syncthreads();
+    if (pb < b) {
+      // the lane's slots lane, lane + 32, ... in order, Q_BATCH at a time:
+      // all the batch's tests (independent hashes) first, then its adds
+      for (int i0 = lane; i0 < n; i0 += 32 * Q_BATCH) {
+        bool sel[Q_BATCH];
+#pragma unroll
+        for (int u = 0; u < Q_BATCH; ++u) {
+          const int i = i0 + 32 * u;
+          const int32_t k = i < n ? ks[i] : -1;
+          int32_t v = k;
+          if (flags & 1)
+            v = static_cast<int32_t>(hash_u32(static_cast<uint32_t>(k),
+                                              static_cast<uint32_t>(salt))
+                                     >> 1);
+          sel[u] = v >= lo && v <= hi && (v & mask) == want && k >= 0;
+        }
+#pragma unroll
+        for (int u = 0; u < Q_BATCH; ++u)
+          if (sel[u]) {
+#pragma unroll
+            for (int j = 0; j < REPRO_MAX_OBJECTIVES; ++j)
+              if (j < obj.nf) acc[j] += cs[j][i0 + 32 * u];
+          }
       }
     }
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this block's [16, F] partials -> scratch[tile][rank]
+  float* part = scratch + (static_cast<size_t>(blockIdx.y) * nranks + rank)
+                              * Q_PARTS;
 #pragma unroll
-  for (int j = 0; j < REPRO_MAX_OBJECTIVES; ++j)
+  for (int j = 0; j < REPRO_MAX_OBJECTIVES; ++j) {
+    float v = acc[j];
 #pragma unroll
-    for (int t = 0; t < TILE_B; ++t) {
-      float v = acc[j][t];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][j][t] = v;
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) part[warp * REPRO_MAX_OBJECTIVES + j] = v;
+  }
+  if (!last_block_of_tile(tickets + blockIdx.y, nranks)) return;
+  if (threadIdx.x < Q_PARTS) {
+    const int wv = threadIdx.x / REPRO_MAX_OBJECTIVES;
+    const int j = threadIdx.x % REPRO_MAX_OBJECTIVES;
+    const int q = blockIdx.y * Q_WARPS + wv;
+    if (q < b && j < obj.nf) {
+      const float* tile = scratch + static_cast<size_t>(blockIdx.y) * nranks
+                                        * Q_PARTS;
+      float s = 0.0f;
+      for (int r = 0; r < nranks; ++r)
+        s += __ldcg(tile + r * Q_PARTS + threadIdx.x);
+      out[static_cast<size_t>(j) * b + q] = s;
     }
-  __syncthreads();
-  if (threadIdx.x < REPRO_MAX_OBJECTIVES * TILE_B) {
-    const int j = threadIdx.x / TILE_B, t = threadIdx.x % TILE_B;
-    float s = 0.0f;
-    for (int wv = 0; wv < QUERY_THREADS / 32; ++wv) s += red[wv][j][t];
-    if (j < obj.nf && b0 + t < b) out[j * b + b0 + t] = s;
   }
 }
 
 extern "C" int repro_segquery(const void* keys, const void* w, const void* p,
                               const void* member, const void* table,
-                              void* out, int c, int b, int nf,
+                              void* out, void* scratch, void* tickets, int c,
+                              int b, int slices, int slice_len, int nf,
                               const void* kinds, const void* params,
                               void* stream) {
   const Objectives obj = make_objectives(
       nf, static_cast<const int*>(kinds), static_cast<const float*>(params));
-  const int blocks = (b + TILE_B - 1) / TILE_B;
-  segquery_kernel<<<blocks, QUERY_THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(slices, (b + Q_WARPS - 1) / Q_WARPS);
+  segquery_kernel<<<grid, Q_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(keys), static_cast<const float*>(w),
       static_cast<const float*>(p), static_cast<const uint8_t*>(member),
-      static_cast<const int32_t*>(table), static_cast<float*>(out), c, b,
-      obj);
+      static_cast<const int32_t*>(table), static_cast<float*>(out),
+      static_cast<float*>(scratch), static_cast<unsigned int*>(tickets), c, b,
+      slice_len, obj);
   return static_cast<int>(cudaGetLastError());
+}
+
+// registers per thread, local (spill) bytes and static shared bytes
+extern "C" int repro_segquery_attrs(int* regs_local_shared) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, segquery_kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  regs_local_shared[0] = a.numRegs;
+  regs_local_shared[1] = static_cast<int>(a.localSizeBytes);
+  regs_local_shared[2] = static_cast<int>(a.sharedSizeBytes);
+  return 0;
 }

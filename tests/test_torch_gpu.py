@@ -13,7 +13,9 @@ on the CPU (capping under ppswor where no two active r/w lie within 8 ulp:
 the CPU's log1p may round r differently), estimates rtol 1e-5; K5's
 ball-mode estimates within that rtol plus the HT weight of the slots whose
 d2 lies within 8 eps32 (|x|^2 + |c|^2) of r^2 (the two sides sum the dot
-products in another order)."""
+products in another order); on a one-slot slab, where no sum averages a
+slot's rounding, each K5 row within that rtol plus the HT weight times
+the spread of the slot's value over d2 +- 8 eps32 (|x|^2 + |c|^2)."""
 import numpy as np
 import pytest
 
@@ -32,6 +34,7 @@ from repro_torch.core import predicates as P                  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 EST_RTOL = 1e-5
+K4_CHUNK = 1152         # slots segquery.cu stages per pass (Q_CHUNK)
 
 # kind 0=sum, 1=count, 2=thresh, 3=cap, 4=moment (kernels/seeds.py)
 OBJ8 = ((0, 0.0), (1, 0.0), (2, 2.0), (3, 1.5), (4, 1.5), (2, 0.5),
@@ -122,6 +125,63 @@ def test_segquery_kernel_matches_plain_and_is_batch_independent(cuda):
         assert torch.equal(alone[:, 0], got[:, i])
 
 
+def _k4_slab(dev, c, seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 40_000, c).astype(np.int32)
+    keys[rng.random(c) < 0.1] = -1
+    return _on(dev, keys, rng.lognormal(0, 1.5, c).astype(np.float32),
+               rng.uniform(0.02, 1.0, c).astype(np.float32),
+               (rng.random(c) < 0.8) & (keys >= 0))
+
+
+def _k4_table(dev, b, seed):
+    rng = np.random.default_rng(seed)
+    preds = [P.EVERYTHING]
+    for i in range(b - 1):
+        lo = int(rng.integers(0, 30_000))
+        preds.append([P.key_range(lo, lo + 9_000), P.key_mask(7, i % 8),
+                      P.hash_fraction(0.37, i)][i % 3])
+    return _on(dev, P.encode_predicates(preds))[0]
+
+
+@pytest.mark.parametrize("b", [1, 7, kq.TILE_B, kq.TILE_B + 1, 256, 1000])
+@pytest.mark.parametrize("c", [1, kq.SLICE_TARGET - 1, kq.SLICE_TARGET,
+                               kq.SLICE_TARGET + 1, 8201,
+                               kq.MAX_SLICES * K4_CHUNK + 1])
+def test_segquery_split_slab_matches_plain_with_fixed_bits(cuda, c, b):
+    """The slab split across blocks: plain-version parity, one launch per
+    call, run-to-run bits, and each column alone equal to its bits in the
+    batch (the last c takes two staging passes a slice)."""
+    slab = _k4_slab(cuda, c, c)
+    table = _k4_table(cuda, b, b)
+    before = K.launch_counts()["segquery"]
+    got = K.segment_query_slab(*slab, table, OBJ8)
+    assert K.launch_counts()["segquery"] == before + 1
+    want = kq.segment_query_slab_plain(*slab, table, OBJ8)
+    torch.testing.assert_close(got, want, rtol=EST_RTOL, atol=1e-6)
+    assert torch.equal(got, K.segment_query_slab(*slab, table, OBJ8))
+    for i in sorted({0, b // 2, b - 1}):
+        alone = K.segment_query_slab(*slab, table[i:i + 1].contiguous(),
+                                     OBJ8)
+        assert torch.equal(alone[:, 0], got[:, i]), i
+
+
+def test_empty_slab_answers_zeros(cuda):
+    """c = 0: both kernels launch and answer exact zeros."""
+    slab = _k4_slab(cuda, 0, 0)
+    table = _k4_table(cuda, 17, 1)
+    assert torch.equal(K.segment_query_slab(*slab, table, OBJ8),
+                       torch.zeros((8, 17), device=cuda))
+    _, ctable = _k5_inputs(cuda, 7, 20, 68, c=1)
+    pts = torch.empty((0, 68), device=cuda)
+    probs = torch.empty((0,), device=cuda)
+    member = torch.empty((0,), dtype=torch.bool, device=cuda)
+    before = K.launch_counts()["servicecost"]
+    got = K.service_cost_slab(pts, probs, member, ctable)
+    assert K.launch_counts()["servicecost"] == before + 1
+    assert torch.equal(got, torch.zeros(7, device=cuda))
+
+
 def _k5_inputs(dev, q, cmax, dim, c=4098, seed=6, mode="mix"):
     """A slab of c points and a [q, cmax] table: ragged sets near the data,
     one all-invalid row, mu cycling 1, 2, 1.5 and every 4th row in ball
@@ -199,6 +259,74 @@ def test_servicecost_kernel_is_deterministic_and_batch_independent(cuda):
     got = K.service_cost_slab(*slab, null)
     assert torch.equal(got[:3], full[:3])
     assert torch.equal(got[3:], torch.zeros(13, device=cuda))
+
+
+def _assert_k5_slot_close(got, want, slab, table):
+    """For a slab of a few slots, where no sum averages a slot's d2
+    rounding away: every row within rtol 1e-5 plus, per slot, the HT
+    weight times the spread of its value over the plain d2 +- 8 eps32
+    (|x|^2 + |c|^2) (both sides expand d2 = (|c|^2 + |x|^2) - 2 x.c,
+    rounded in another order; near a center that cancels)."""
+    pts, probs, member = slab
+    ht = torch.where(member, 1.0 / torch.clamp_min(probs, 1e-30),
+                     torch.zeros_like(probs)).double()
+    pn2 = (pts.double() ** 2).sum(1)
+    for i in range(got.shape[0]):
+        slack = EST_RTOL * abs(float(want[i])) + 1e-6
+        if bool(table.cvalid[i].any()):
+            ctr = table.centers[i][table.cvalid[i]]
+            d2 = CO.sq_dists(ctr, pts).double().min(0).values
+            tol = (8 * 2.0 ** -23 * ((ctr.double() ** 2).sum(1)[:, None]
+                                     + pn2[None, :])).max(0).values
+            if int(table.mode[i]) == CO.MODE_BALL:
+                r2 = float(table.param[i]) ** 2
+                slack += float(ht[(d2 - r2).abs() <= tol].sum())
+            else:
+                e = 0.5 * float(table.mu[i])
+                lo = (d2 - tol).clamp_min(0.0) ** e
+                slack += float((ht * ((d2 + tol) ** e - lo)).sum())
+        assert abs(float(got[i]) - float(want[i])) <= slack, (i, got[i],
+                                                              want[i])
+
+
+def _largest_dim(cmax):
+    return max(d for d in range(1, 641) if ksc.supported(d, cmax))
+
+
+@pytest.mark.parametrize("c", [1, 4098])
+@pytest.mark.parametrize("cmax", [1, 20, 64])
+@pytest.mark.parametrize("dim", [3, 68, "largest"])
+def test_servicecost_tiled_matches_plain_with_fixed_bits(cuda, c, cmax,
+                                                         dim):
+    """The tiled kernel at Q = 7 (not a multiple of the 4 sets a cluster
+    scores), over Cmax and dim up to the largest dim the plan accepts:
+    plain-version parity, the all-invalid row 0, run-to-run bits, each set
+    alone equal to its bits in the batch, and Cmax padding keeping them.
+    At c = 1 the rows are single slots: held per slot to the d2 window
+    (``_assert_k5_slot_close``); at c = 4098 as the tests above."""
+    dim = _largest_dim(cmax) if dim == "largest" else dim
+    q = 7
+    close = _assert_k5_slot_close if c == 1 else _assert_k5_close
+    slab, table = _k5_inputs(cuda, q, cmax, dim, c=c, seed=c + cmax + dim)
+    before = K.launch_counts()["servicecost"]
+    full = K.service_cost_slab(*slab, table)
+    assert K.launch_counts()["servicecost"] == before + 1
+    close(full, ksc.service_cost_slab_plain(*slab, table), slab, table)
+    assert float(full[5]) == 0.0                    # all-invalid row
+    pw = torch.rand(slab[0].shape[0], device=cuda)
+    close(K.service_cost_slab(*slab, table, point_weights=pw),
+          ksc.service_cost_slab_plain(*slab, table, pw), slab, table)
+    assert torch.equal(full, K.service_cost_slab(*slab, table))
+    for i in range(q):
+        alone = CO.CostTable(*(x[i:i + 1].contiguous() for x in table))
+        assert torch.equal(K.service_cost_slab(*slab, alone)[0], full[i]), i
+    pad = next((p for p in (12, 4, 1) if ksc.supported(dim, cmax + p)),
+               None)
+    if pad is not None:
+        wide = CO.CostTable(
+            torch.nn.functional.pad(table.centers, (0, 0, 0, pad)),
+            torch.nn.functional.pad(table.cvalid, (0, pad)), *table[2:])
+        assert torch.equal(K.service_cost_slab(*slab, wide), full)
 
 
 # ----------------------------------------------------------------------- K6
