@@ -6,15 +6,22 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 0. the card's name and power limit (nvidia-smi), then the nvcc build of the
-   six CUDA kernels from ``src/repro_torch/kernels/csrc``;
+   six CUDA kernels (K2 in two routes) from ``src/repro_torch/kernels/csrc``;
 1. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (K1-K4: the 8-objective smoke spec, k = 1024 each,
-   capacity 8201; K5: c = 4098 slab points of dim 68 against (Q, Cmax) in
+   capacity 8201; K2's global route (select.cu) bit for bit at
+   [8, n] k = 1025 and 8202, on a compaction priority row at k = 8201 and
+   on rows with a tie at the threshold, and its kept per-span kernel
+   (blockselect.cu) on the same inputs, both routes timed beside a stable
+   torch.sort of the row and torch.topk, warm and with a cold L2; K5:
+   c = 4098 slab points of dim 68 against (Q, Cmax) in
    {(1, 20), (128, 20), (128, 1)}, and dim 3, in cost mode at mu in
    {1, 2, 1.5} and in ball mode, run-to-run and alone-vs-batch bits; K6:
-   exact at n = 65,536 and on 4,096 sampled rows at n = 2^20), with the
-   kernel's, the plain version's and, where one exists, a single PyTorch
-   call's time (CUDA events, median of 21; K6 of 5; K5 also at Q = 16),
+   exact on all rows at n = 65,536 of the capping inputs and of a
+   tie-heavy input, and at n = 2^20 on 4,096 sampled rows plus 256 of
+   each clipped weight, 0.1 and 10), with the kernel's, the plain
+   version's and, where one exists, a single PyTorch call's time (CUDA
+   events, median of 21; K6's plain version of 5; K5 also at Q = 16),
    and the registers, local (spill) bytes and static shared memory of K4
    and K5 from ``cudaFuncGetAttributes`` with their launch plans;
 2. serving through ``EnginePool``: 3 tenants x 4 shards, 16 chunks of
@@ -54,7 +61,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
-from phase 1; K6's row gives its time at n = 2^20 and its plain version's
+from phase 1; K2's row is its global route, with both routes named under
+``routes``; K6's row gives its time at n = 2^20 and its plain version's
 at ``plain_n`` = 65,536, beside the kernel's own time there) and, last,
 ``{"ok": true, ...}``.
 """
@@ -87,6 +95,7 @@ FP32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 REPS = 21
 K6_SMALL = 65_536               # K6 kernel = plain on all rows
 K6_ROWS = 4096                  # ... and on this many rows at 2^20
+K6_CLIP_ROWS = 256              # ... plus this many of each clipped weight
 UNIVERSAL_N = 1 << 20           # keys of the universal tier (phase 5)
 UNIVERSAL_K = 64
 UNIVERSAL_SHARDS = 16
@@ -126,6 +135,39 @@ def cuda_ms(torch, fn, reps: int = REPS, inner: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def cuda_ms_cold(torch, fn, flush, reps: int = REPS) -> float:
+    """Median device time of one ``fn`` call after ``flush`` (a buffer
+    larger than the 50 MB L2) is overwritten, so fn finds its inputs in
+    device memory; a sleep kernel holds the stream while the host enqueues
+    the flush and the call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def tie_rows(torch, seeds, k: int):
+    """The seed rows with a tie at the (k+1)-th smallest spread over every
+    span: a quarter of the k + 1 smallest of each row set to the row's
+    (k+1)-th smallest value."""
+    out = seeds.clone()
+    kth = out.kthvalue(k + 1, dim=1, keepdim=True).values
+    small = torch.topk(out, k + 1, dim=1, largest=False).indices
+    pick = small[:, ::4]
+    out.scatter_(1, pick, kth.expand(-1, pick.shape[1]))
+    return out
 
 
 def bound(nbytes: float, ops: float):
@@ -191,7 +233,8 @@ def tenant_chunk(t: int, c: int, rng):
 
 def phase_kernels(torch, C, K, dev):
     from repro_torch.kernels.blockselect import (
-        batched_bottomk_select_plain, block_candidates_plain)
+        batched_bottomk_select_plain, block_candidates_plain,
+        select_from_candidates)
     from repro_torch.kernels.compact import (compact_take_plain,
                                              retention_priority_plain)
     from repro_torch.kernels.seeds import fused_seeds_fvals_plain
@@ -240,46 +283,82 @@ def phase_kernels(torch, C, K, dev):
           flush=True)
 
     # K2 ------------------------------------------------------------------
+    # the main path's two selects: multisketch_select over the F seed rows
+    # (k = kmax + 1 = 1025) and compact_take over one priority row
+    # (k = capacity = 8201); the global route (select.cu) against the plain
+    # version, and the kept per-span kernel (blockselect.cu) against its own
     seeds, _ = K.fused_seeds_fvals(keys, w, act, enc, "ppswor", 17)
-    err = 0.0
-    for k in (1025, cap + 1):
-        vk, ik, tk = K.batched_bottomk_select(seeds, k)
-        vp, ip, tp = batched_bottomk_select_plain(seeds, k)
-        torch.cuda.synchronize()
-        _check(torch.equal(vk, vp) and torch.equal(ik, ip)
-               and torch.equal(tk, tp), f"K2 k={k}: vals/idx/tau differ")
-        ck = K.blockselect.block_candidates(seeds, min(k + 1, n))
-        cp = block_candidates_plain(seeds, min(k + 1, n))
-        _check(torch.equal(ck[0], cp[0]) and torch.equal(ck[1], cp[1]),
-               f"K2 k={k}: block candidates differ")
-        err = max(err, max_abs(vk, vp))
-    times = {}
-    nb = -(-n // 2048)
-    for k in (1025, cap + 1):
-        ksel = min(k + 1, n)
-        kb = min(ksel, 2048)
-        padded = torch.nn.functional.pad(seeds, (0, nb * 2048 - n),
-                                         value=float("inf"))
-        t_k = cuda_ms(torch, lambda: K.blockselect.block_candidates(
-            seeds, ksel))
-        t_p = cuda_ms(torch, lambda: block_candidates_plain(seeds, ksel))
-        t_l = cuda_ms(torch, lambda: torch.sort(
-            padded.view(nf, nb, 2048), dim=-1, stable=True))
-        # bytes: every seed read once, nb * kb (value, index) pairs written;
-        # ops: one comparison per seed at least
-        b_ms, b_by = bound(nf * n * 4 + nf * nb * kb * 8, nf * n)
-        times[k] = (t_k, t_p, t_l, b_ms, b_by)
-        print(f"K2 blockselect [{nf},{n}] k={k} (kb={kb}): kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, torch.sort {t_l:.4f} ms,"
-              f" bound {b_ms:.4f} ms ({b_by}); exact", flush=True)
-    t_k, t_p, t_l, b_ms, b_by = times[1025]
-    out["blockselect"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=t_l)
-
-    # K3 ------------------------------------------------------------------
-    sorted_keys = torch.sort(keys).values
+    sorted_keys = torch.sort(keys).values         # K3's inputs too
     member = torch.from_numpy(rng.random(n) < cap / n).to(dev)
     keep = member | torch.from_numpy(rng.random(n) < 8 / n).to(dev)
+    pri = retention_priority_plain(sorted_keys, w, member, keep)[None, :]
+    ties = tie_rows(torch, seeds, 1025)
+    err = 0.0
+    for what, s_in, k in (("seeds", seeds, 1025), ("seeds", seeds, cap + 1),
+                          ("priority row", pri, cap),
+                          ("tie at the threshold", ties, 1025)):
+        vk, ik, tk = K.batched_bottomk_select(s_in, k)
+        vp, ip, tp = batched_bottomk_select_plain(s_in, k)
+        torch.cuda.synchronize()
+        _check(torch.equal(vk.view(torch.int32), vp.view(torch.int32))
+               and torch.equal(ik, ip) and torch.equal(tk, tp),
+               f"K2 {what} k={k}: vals/idx/tau differ")
+        ck = K.blockselect.block_candidates(s_in, min(k + 1, n))
+        cp = block_candidates_plain(s_in, min(k + 1, n))
+        _check(torch.equal(ck[0], cp[0]) and torch.equal(ck[1], cp[1]),
+               f"K2 {what} k={k}: per-span candidates differ")
+        err = max(err, max_abs(vk, vp))
+    _check(int((ties[0] == ties[0].kthvalue(1026).values).sum()) > 1,
+           "K2: the tie input has no tie at its threshold")
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    times = {}
+    for name, s_in, k in (("seeds", seeds, 1025), ("priority row", pri, cap)):
+        nf_, ksel = s_in.shape[0], min(k + 1, n)
+        t = dict(
+            ms=cuda_ms(torch, lambda: K.batched_bottomk_select(s_in, k)),
+            cold_ms=cuda_ms_cold(torch, lambda: K.batched_bottomk_select(
+                s_in, k), flush),
+            span_route_ms=cuda_ms(torch, lambda: select_from_candidates(
+                *K.blockselect.block_candidates(s_in, ksel), n, k)),
+            span_kernel_ms=cuda_ms(torch, lambda: K.blockselect
+                                   .block_candidates(s_in, ksel)),
+            plain_ms=cuda_ms(torch, lambda: batched_bottomk_select_plain(
+                s_in, k)),
+            library_ms=cuda_ms(torch, lambda: torch.sort(s_in, dim=1,
+                                                         stable=True)),
+            topk_ms=cuda_ms(torch, lambda: torch.topk(s_in, ksel, dim=1,
+                                                      largest=False)))
+        # bytes: every seed read once, k + 1 (value, index) pairs written;
+        # ops: one comparison per seed at least
+        t["bound_ms"], t["bound_by"] = bound(nf_ * n * 4 + nf_ * ksel * 8,
+                                             nf_ * n)
+        times[name] = t
+        print(f"K2 select [{nf_},{n}] k={k}: global route {t['ms']:.4f} ms "
+              f"(cold L2 {t['cold_ms']:.4f}), per-span route "
+              f"{t['span_route_ms']:.4f} (its kernel "
+              f"{t['span_kernel_ms']:.4f}), plain {t['plain_ms']:.4f}, "
+              f"stable torch.sort of the row {t['library_ms']:.4f}, "
+              f"torch.topk {t['topk_ms']:.4f}, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); exact, ties and signed zeros included",
+              flush=True)
+    main, comp = times["seeds"], times["priority row"]
+    out["blockselect"] = dict(
+        max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], cold_ms=main["cold_ms"],
+        topk_ms=main["topk_ms"],
+        routes={"global": {"source": "src/repro_torch/kernels/csrc/select.cu",
+                           "ms": main["ms"], "ms_compact_take": comp["ms"]},
+                "span": {"source":
+                         "src/repro_torch/kernels/csrc/blockselect.cu",
+                         "route_ms": main["span_route_ms"],
+                         "kernel_ms": main["span_kernel_ms"],
+                         "route_ms_compact_take": comp["span_route_ms"]}},
+        compact_take={k_: comp[k_] for k_ in ("ms", "cold_ms", "plain_ms",
+                                              "library_ms", "topk_ms",
+                                              "bound_ms")})
+
+    # K3 ------------------------------------------------------------------
     pk = K.retention_priority(sorted_keys, w, member, keep)
     pp = retention_priority_plain(sorted_keys, w, member, keep)
     tk_, vk_ = K.compact_take(sorted_keys, w, member, keep, cap)
@@ -714,44 +793,71 @@ def capping_inputs(torch, C, dev, n: int, seed: int):
     return torch.where(act, w, torch.zeros_like(w)), u, rw, act
 
 
+def tie_heavy_inputs(torch, dev, n: int, seed: int):
+    """K6 operands with many ties: weights from 4 values, u quantised to
+    2^10 values, r/w on a grid of 1/8, 5 % of the keys inactive."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.tensor([0.1, 1.0, 2.5, 10.0], device=dev)
+    w = vals[torch.randint(0, 4, (n,), generator=g, device=dev)]
+    act = torch.rand(n, generator=g, device=dev) >= 0.05
+    u = torch.randint(0, 1 << 10, (n,), generator=g, device=dev) / 1024.0
+    rw = torch.randint(0, 64, (n,), generator=g, device=dev) / 8.0
+    return torch.where(act, w, torch.zeros_like(w)), u, rw, act
+
+
 def phase_k6(torch, C, K, dev, n_small: int = K6_SMALL,
              n_full: int = UNIVERSAL_N):
     from repro_torch.kernels.rankcount import rank_counts_plain
+    err = 0.0
+    for what, args in (("capping", capping_inputs(torch, C, dev, n_small, 6)),
+                       ("tie-heavy", tie_heavy_inputs(torch, dev, n_small,
+                                                      8))):
+        hk_s, lk_s = K.rank_counts(*args)
+        hp_s, lp_s = rank_counts_plain(*args)
+        torch.cuda.synchronize()
+        _check(torch.equal(hk_s, hp_s) and torch.equal(lk_s, lp_s),
+               f"K6 {what} n={n_small}: counts differ from the plain version")
+        err = max(err, max_abs(hk_s, hp_s), max_abs(lk_s, lp_s))
     args = capping_inputs(torch, C, dev, n_small, 6)
-    hk_s, lk_s = K.rank_counts(*args)
-    hp_s, lp_s = rank_counts_plain(*args)
-    torch.cuda.synchronize()
-    _check(torch.equal(hk_s, hp_s) and torch.equal(lk_s, lp_s),
-           f"K6 n={n_small}: counts differ from the plain version")
-    t_small = cuda_ms(torch, lambda: K.rank_counts(*args), reps=5, inner=1)
+    t_small = cuda_ms(torch, lambda: K.rank_counts(*args))
     t_p = cuda_ms(torch, lambda: rank_counts_plain(*args), reps=5, inner=1)
     big = capping_inputs(torch, C, dev, n_full, 7)
     hk, lk = K.rank_counts(*big)
-    rows = torch.randperm(n_full, device=dev)[:K6_ROWS]
+    g = torch.Generator(device=dev).manual_seed(9)
+    w = big[0]
+    # sampled rows, and rows from the two groups the clip at 0.1 and 10 makes
+    rows = torch.cat([torch.randperm(n_full, generator=g, device=dev)[:K6_ROWS]]
+                     + [torch.nonzero(big[3] & (w == c))[:K6_CLIP_ROWS, 0]
+                        for c in (0.1, 10.0)])
+    _check(rows.shape[0] == K6_ROWS + 2 * K6_CLIP_ROWS,
+           "K6: fewer clipped keys than rows to check")
     hp, lp = rank_counts_plain(*big, rows=rows)
     torch.cuda.synchronize()
     _check(torch.equal(hk[rows], hp) and torch.equal(lk[rows], lp),
-           f"K6 n={n_full}: counts of {K6_ROWS} sampled rows differ from "
-           f"the plain version")
+           f"K6 n={n_full}: counts of {rows.shape[0]} checked rows differ "
+           f"from the plain version")
     _check(int(hk.max()) > 0 and int(lk.max()) > 0, "K6: all counts zero")
-    err = max(max_abs(hk_s, hp_s), max_abs(lk_s, lp_s),
-              max_abs(hk[rows], hp), max_abs(lk[rows], lp))
-    t_k = cuda_ms(torch, lambda: K.rank_counts(*big), reps=5, inner=1)
-    # ops: per ordered pair of active keys (the pairs this input needs) a
-    # weight comparison, two seed comparisons and one count update; bytes:
-    # weight, two seeds, active read, h, l written
+    err = max(err, max_abs(hk[rows], hp), max_abs(lk[rows], lp))
+    t_k = cuda_ms(torch, lambda: K.rank_counts(*big))
     n_act = int(big[3].sum())
-    b_ms, b_by = bound(n_full * 13 + n_full * 8, 4.0 * n_act * n_act)
-    print(f"K6 rankcount n={n_full} ({n_act} active): kernel {t_k:.3f} ms, "
-          f"bound {b_ms:.3f} ms ({b_by}); n={n_small}: kernel "
-          f"{t_small:.4f} ms, plain "
-          f"{t_p:.4f} ms; exact at n={n_small} and on {K6_ROWS} sampled "
-          f"rows at n={n_full}", flush=True)
+    # bytes: weight, two seeds, active read once, h, l written; ops: the
+    # comparisons of a merge sort of both orders (2 n log2 n)
+    b_ms, b_by = bound(n_full * 13 + n_full * 8,
+                       2.0 * n_full * np.log2(n_full))
+    # the all-pairs formulation's bound: 4 operations per ordered pair of
+    # active keys
+    pairs_ms, _ = bound(0, 4.0 * n_act * n_act)
+    print(f"K6 rankcount n={n_full} ({n_act} active): kernel {t_k:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; all-pairs bound {pairs_ms:.2f} ms); "
+          f"n={n_small}: kernel {t_small:.4f} ms, plain {t_p:.4f} ms; exact "
+          f"on all rows at n={n_small} (capping and tie-heavy inputs) and on "
+          f"{rows.shape[0]} rows at n={n_full} ({K6_ROWS} sampled, "
+          f"{K6_CLIP_ROWS} each of w = 0.1 and w = 10)", flush=True)
     # ms and bound_ms are at n_full; the plain version's O(n^2) time is
     # taken at plain_n, beside the kernel's own time there
     return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, n=n_full, plain_n=n_small,
-                ms_at_plain_n=t_small)
+                ms_at_plain_n=t_small, allpairs_bound_ms=pairs_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -1104,7 +1210,7 @@ def main() -> int:
     universal_counts = phase_universal(torch, C, K, dev)
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
-               "blockselect": ("blockselect.cu", "blockselect.py:41"),
+               "blockselect": ("select.cu", "blockselect.py:41"),
                "compact": ("compact.cu", "compact.py:39"),
                "segquery": ("segquery.cu", "segquery.py:44"),
                "servicecost": ("servicecost.cu", "servicecost.py:48"),

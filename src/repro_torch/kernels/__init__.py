@@ -4,7 +4,9 @@ plain version, CUDA tensors launch the kernel (or raise). ``ops`` composes
 them into the paper's sampling operations; ``ref`` holds the oracles.
 
 K1 ``seeds``        fused_seeds_fvals      (repro/kernels/seeds.py)
-K2 ``blockselect``  batched_block_bottomk  (repro/kernels/blockselect.py)
+K2 ``blockselect``  batched_bottomk_select (select.cu, the global route)
+                    batched_block_bottomk  (blockselect.cu, per span)
+                                           (repro/kernels/blockselect.py)
 K3 ``compact``      retention_priority     (repro/kernels/compact.py)
 K4 ``segquery``     segment_query_slab     (repro/kernels/segquery.py)
 K5 ``servicecost``  service_cost_slab      (repro/kernels/servicecost.py)

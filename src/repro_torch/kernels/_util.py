@@ -101,6 +101,9 @@ _SIGNATURES = {
                     _VP),
     # seeds, vals, idx, nf, n, span, kb, stream
     "repro_blockselect": (_VP, _VP, _VP, _I, _I, _I, _I, _VP),
+    # seeds, cand_vals, cand_idx, vals, idx, tau, state, counts, scratch,
+    # nf, n, q, m, k, blocks, chunk, ranked, stream
+    "repro_select": (_VP,) * 9 + (_I,) * 8 + (_VP,),
     # keys, member, keep, w, pri, n, stream
     "repro_priority": (_VP, _VP, _VP, _VP, _VP, _I, _VP),
     # keys, w, p, member, table, out, scratch, tickets, c, b, slices,
@@ -113,8 +116,8 @@ _SIGNATURES = {
     # int[3] out: registers, local bytes, static shared bytes
     "repro_segquery_attrs": (_VP,),
     "repro_servicecost_attrs": (_VP,),
-    # w, s_h, s_l, active, h, l, n, stream
-    "repro_rankcount": (_VP,) * 6 + (_I, _VP),
+    # s, pos, out, scratch, n, stream
+    "repro_rankcount": (_VP,) * 4 + (_I, _VP),
 }
 
 
@@ -138,9 +141,10 @@ _tickets: dict = {}
 
 def tile_tickets(device: torch.device, n: int) -> torch.Tensor:
     """At least n zeroed int32 tickets for kernels that split a tile's
-    reduction over blocks (``last_block_of_tile`` in common.cuh): one
-    buffer per (card, stream), made once; every launch leaves the tickets
-    it used at zero again."""
+    reduction over blocks (``last_block_of_tile`` in common.cuh), and the
+    integer histograms such blocks add into: one buffer per (card,
+    stream), made once; every launch leaves the words it used at zero
+    again."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     key = (idx, torch.cuda.current_stream(idx).cuda_stream)

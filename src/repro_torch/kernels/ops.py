@@ -1,10 +1,11 @@
 """Entry points composing the kernels into the paper's sampling operations.
 
 Port of ``repro/kernels/ops.py``. The multi-objective path is one launch of
-K1 (seeds + f-values for all |F| objectives), one of K2 (block-local
-bottom-k) and a stable-sort second stage, then vectorized [F, n] membership
-and probabilities: no loop over objectives. Universal capping membership is
-one launch of K6. Both run on ``device``, else on the device of a tensor
+K1 (seeds + f-values for all |F| objectives), one call of K2 (the global
+bottom-k select of every row, its candidates sorted in the kernel), then
+vectorized [F, n] membership and probabilities: no loop over objectives.
+Universal capping membership is one call of K6 (two orderings, then the
+dominance count). Both run on ``device``, else on the device of a tensor
 ``keys``, else (host arrays) on the card; CPU tensors take the kernels'
 plain versions.
 """

@@ -88,6 +88,76 @@ def test_blockselect_kernel_matches_plain(cuda, n, k):
         assert torch.equal(a, b)
 
 
+def _select_rows(kind, nf, n, k, rng):
+    """[nf, n] seeds of one adversarial kind for K2's global route."""
+    s = rng.uniform(0.5, 1.0, (nf, n)).astype(np.float32)
+    if kind == "all_inf":
+        s[:] = np.inf
+    elif kind == "few_finite":                # fewer than k finite seeds
+        s[:, max(k - 1, 0) // 2:] = np.inf
+        s = rng.permuted(s, axis=1)
+    elif kind == "all_equal":
+        s[:] = 0.75
+    elif kind == "ties_at_threshold":         # the (k+1)-th is a tie
+        for r in range(nf):                   # spread over every span
+            pos = rng.choice(n, size=min(n, 2 * (k + 1)), replace=False)
+            s[r, pos] = 0.25
+            s[r, pos[:(k + 1) // 2]] = 0.125
+    elif kind == "signed_zeros":              # -0.0 ties with +0.0
+        s[:, ::2] = -0.0
+        s[:, 1::4] = 0.0
+    return s
+
+
+SELECT_KINDS = ("all_inf", "few_finite", "all_equal", "ties_at_threshold",
+                "signed_zeros")
+
+
+@pytest.mark.parametrize("k", [1, 5, 1025, 2049, 8202])
+@pytest.mark.parametrize("n", [1, 100, 2049, 5000, 1_056_777])
+@pytest.mark.parametrize("nf", [1, 8])
+def test_global_select_matches_plain_bit_for_bit(cuda, nf, n, k):
+    """K2's global route (``batched_bottomk_select`` on the card) against
+    its plain version: vals (as bits), idx and tau equal, one launch per
+    call, on every adversarial kind of row, n <= k and n = k + 1
+    included."""
+    rng = np.random.default_rng(n + k + nf)
+    for kind in SELECT_KINDS + ("random",):
+        s = torch.from_numpy(_select_rows(kind, nf, n, k, rng)).to(cuda)
+        before = K.launch_counts()["blockselect"]
+        got = K.batched_bottomk_select(s, k)
+        assert K.launch_counts()["blockselect"] == before + 1
+        want = kbs.batched_bottomk_select_plain(s, k)
+        for a, b, name in zip(got, want, ("vals", "idx", "tau")):
+            assert a.shape == b.shape, (kind, name)
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (kind, name)
+
+
+@pytest.mark.parametrize("k", [1, 1025, 2049])
+def test_global_select_at_n_equal_k_plus_one(cuda, k):
+    rng = np.random.default_rng(k)
+    for kind in SELECT_KINDS + ("random",):
+        s = torch.from_numpy(_select_rows(kind, 8, k + 1, k, rng)).to(cuda)
+        for a, b in zip(K.batched_bottomk_select(s, k),
+                        kbs.batched_bottomk_select_plain(s, k)):
+            assert torch.equal(a, b), kind
+
+
+@pytest.mark.parametrize("n,k", [(20_000, 16_383), (100_000, 16_384),
+                                 (1_056_777, 20_000)])
+def test_global_select_past_the_rank_sort(cuda, n, k):
+    """Up to RANK_Q_MAX = 16,384 candidates the kernel sorts them by rank;
+    past it torch.sort does: both equal to the plain version."""
+    rng = np.random.default_rng(k)
+    for kind in ("ties_at_threshold", "signed_zeros", "random"):
+        s = torch.from_numpy(_select_rows(kind, 2, n, k, rng)).to(cuda)
+        for a, b in zip(K.batched_bottomk_select(s, k),
+                        kbs.batched_bottomk_select_plain(s, k)):
+            assert torch.equal(a, b), kind
+
+
 def test_compact_kernel_matches_plain(cuda):
     rng = np.random.default_rng(2)
     n = 5000
@@ -354,6 +424,41 @@ def test_rankcount_kernel_matches_plain(cuda, n, inactive):
     hp, lp = krc.rank_counts_plain(*ops_)
     assert torch.equal(h, hp) and torch.equal(l, lp)
     if inactive == 1.0:
+        assert int(h.abs().sum() + l.abs().sum()) == 0
+
+
+def _k6_tie_operands(dev, n, kind, seed):
+    """Tie-heavy K6 inputs: weights from 4 values, u quantised to 2^10
+    values, all-equal weights, or all keys inactive."""
+    rng = np.random.default_rng(seed)
+    w = rng.lognormal(0, 1, n).astype(np.float32)
+    sh = (rng.integers(0, 1 << 10, n) / 1024.0).astype(np.float32)
+    sl = rng.exponential(1.0, n).astype(np.float32)
+    act = rng.random(n) >= 0.05
+    if kind == "four_weights":
+        w = rng.choice(np.array([0.1, 1.0, 2.5, 10.0], np.float32), n)
+        sl = (rng.integers(0, 64, n) / 8.0).astype(np.float32)
+    elif kind == "equal_weights":
+        w[:] = 1.0
+    elif kind == "all_inactive":
+        act[:] = False
+    return _on(dev, np.where(act, w, 0).astype(np.float32), sh, sl, act)
+
+
+@pytest.mark.parametrize("kind", ["four_weights", "quantised_u",
+                                  "equal_weights", "all_inactive"])
+@pytest.mark.parametrize("n", [1, 1500, 2048, 2049, 4097, 65_536])
+def test_rankcount_dominance_count_exact_on_ties(cuda, n, kind):
+    """K6's O(n log n) count against the all-pairs plain version on every
+    row of tie-heavy inputs, across the run (2048) and merge-level
+    boundaries."""
+    ops_ = _k6_tie_operands(cuda, n, kind, n)
+    before = K.launch_counts()["rankcount"]
+    h, l = K.rank_counts(*ops_)
+    assert K.launch_counts()["rankcount"] == before + 1
+    hp, lp = krc.rank_counts_plain(*ops_)
+    assert torch.equal(h, hp) and torch.equal(l, lp)
+    if kind == "all_inactive":
         assert int(h.abs().sum() + l.abs().sum()) == 0
 
 

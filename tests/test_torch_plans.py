@@ -1,5 +1,6 @@
-"""The launch plans of the port's K4 (segment query) and K5 (service cost)
-kernels, on the CPU: no card, no JAX.
+"""The launch plans of the port's K4 (segment query), K5 (service cost) and
+K2 (global bottom-k select) kernels, and K6's launch, on the CPU: no card,
+no JAX.
 
 A plan fixes how a launch splits the slab across blocks and so the order
 in which a slot's contribution is summed. K4's comes from c alone and
@@ -12,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import blockselect as kbs            # noqa: E402
+from repro_torch.kernels import rankcount as krc              # noqa: E402
 from repro_torch.kernels import segquery as kq                # noqa: E402
 from repro_torch.kernels import servicecost as ksc            # noqa: E402
 
@@ -78,14 +81,18 @@ def recording(monkeypatch):
     into a recording library: what each launch is handed, without a
     card."""
     lib = _RecordingLib()
-    for mod in (kq, ksc):
+    lib.tickets = []
+    for mod in (kq, ksc, kbs, krc):
         monkeypatch.setattr(mod, "kernel_lib", lambda: lib)
         monkeypatch.setattr(mod, "check_cuda", lambda *a, **k: a[1])
         monkeypatch.setattr(mod, "stream_ptr", lambda dev: 0)
-        monkeypatch.setattr(mod, "tile_tickets",
-                            lambda dev, n: _meta(n, torch.int32))
+    for mod in (kq, ksc, kbs):
+        monkeypatch.setattr(mod, "tile_tickets", lambda dev, n: (
+            lib.tickets.append(n), _meta(n, torch.int32))[1])
     monkeypatch.setattr(kq.segment_query_slab, "launches", 0)
     monkeypatch.setattr(ksc.service_cost_slab, "launches", 0)
+    monkeypatch.setattr(kbs.batched_block_bottomk, "launches", 0)
+    monkeypatch.setattr(krc.rank_counts, "launches", 0)
     return lib
 
 
@@ -212,3 +219,115 @@ def test_cpu_tensors_never_reach_a_plan(monkeypatch):
     out = kq.segment_query_slab(keys, probs, probs, member, ptab,
                                 ((0, 0.0),))
     assert out.shape == (1, 1)
+
+
+# ----------------------------------------------------------------------- K2
+# (F, n, k): the main path's two shapes (multisketch_select, compact_take),
+# n <= k, n = k + 1, and ragged n around the span and block sizes
+SELECT_SHAPES = [(8, 1_056_777, 1025), (1, 1_056_777, 8201), (8, 1, 1),
+                 (1, 100, 5), (8, 100, 1025), (8, 2049, 2048),
+                 (1, 2049, 2049), (8, 5000, 8202), (3, 5000, 1),
+                 (1, 8202, 8201), (8, 65_536, 64), (1, 1_000_003, 0),
+                 (2, 100_000, 16_383), (2, 100_000, 20_000)]
+
+
+def _reference_width(n, k):
+    """The candidate width and output width of ``select_from_candidates``
+    over the per-span route's candidates (the reference's)."""
+    ksel = min(k + 1, n)
+    nb = -(-max(n, 1) // kbs._span(n))
+    m = min(k + 1, nb * ksel)
+    return m, min(k, m)
+
+
+@pytest.mark.parametrize("nf,n,k", SELECT_SHAPES)
+def test_select_plan_covers_each_row(nf, n, k):
+    """q = min(k + 1, n) candidates, the reference's width m, blocks whose
+    chunks of whole warp segments cover the row with none empty, and
+    about TARGET_BLOCKS blocks in all once rows are long."""
+    plan = kbs.select_plan(nf, n, k)
+    assert plan.q == min(k + 1, n)
+    assert (plan.m, plan.width) == _reference_width(n, k)
+    assert plan.m >= plan.q
+    assert plan.ranked == (plan.q <= kbs.RANK_Q_MAX)
+    assert plan.chunk % kbs.SELECT_THREADS == 0
+    assert plan.blocks <= max(1, -(-n // kbs.MIN_CHUNK))
+    assert plan.blocks * plan.chunk >= n
+    assert (plan.blocks - 1) * plan.chunk < max(n, 1)
+    assert plan.scratch == nf * (kbs.SELECT_BINS + 1)
+    if n >= kbs.MIN_CHUNK * kbs.TARGET_BLOCKS:
+        assert nf * plan.blocks <= kbs.TARGET_BLOCKS + nf
+    if (nf, n, k) == (8, 1_056_777, 1025):
+        assert (plan.q, plan.blocks, plan.chunk) == (1026, 130, 8192)
+
+
+@pytest.mark.parametrize("nf,n,k", SELECT_SHAPES)
+def test_select_launch_follows_the_plan(recording, nf, n, k):
+    """``batched_bottomk_select`` on meta tensors (shapes, no contents)
+    into a recording library: one launch, handed (F, n, q, m, k, blocks,
+    chunk, ranked) of ``select_plan`` and a zeroed scratch of its size, and
+    output widths of the reference (sorted by the kernel up to RANK_Q_MAX
+    candidates, by torch.sort past it). A meta tensor has no contents, so the wrapper reads
+    none of the seeds (no host synchronisation) and its launch cannot
+    depend on them."""
+    vals, idx, tau = kbs.batched_bottomk_select(_meta((nf, n)), k)
+    plan = kbs.select_plan(nf, n, k)
+    width = _reference_width(n, k)[1]
+    assert tuple(vals.shape) == tuple(idx.shape) == (nf, width)
+    assert tuple(tau.shape) == (nf,)
+    assert kbs.batched_block_bottomk.launches == 1
+    [(name, args)] = recording.calls
+    assert name == "repro_select"
+    assert args[9:17] == (nf, n, plan.q, plan.m, k, plan.blocks, plan.chunk,
+                          int(plan.ranked))
+    assert recording.tickets == [plan.scratch]
+
+
+def test_select_launch_of_the_main_path_callers(recording):
+    """multisketch_select's and compact_take's selects go through the
+    global route with the main path's plans."""
+    n = 1_056_777
+    kbs.batched_bottomk_select(_meta((8, n)), 1025)
+    from repro_torch.kernels import compact as kc
+    take, valid = kc._take(_meta(n), 8201, kbs.batched_bottomk_select)
+    assert tuple(take.shape) == tuple(valid.shape) == (8201,)
+    sel = [args[9:17] for name, args in recording.calls]
+    want = [kbs.select_plan(8, n, 1025), kbs.select_plan(1, n, 8201)]
+    assert sel == [(f, n, p.q, p.m, k, p.blocks, p.chunk, 1)
+                   for f, k, p in zip((8, 1), (1025, 8201), want)]
+
+
+def test_select_empty_rows_launch_nothing(recording):
+    vals, idx, tau = kbs.batched_bottomk_select(_meta((8, 0)), 1025)
+    assert vals.shape == (8, 0) and tau.shape == (8,)
+    assert recording.calls == []
+
+
+# ----------------------------------------------------------------------- K6
+@pytest.mark.parametrize("n", [1, 2048, 2049, 65_536, 1_000_003])
+def test_rankcount_launch_takes_no_host_sync(recording, n):
+    """K6 on meta tensors: the order reduction and one call into the
+    kernel library (its merge levels follow from n), no read of the
+    contents."""
+    w = _meta(n)
+    h, l = krc.rank_counts(w, w, w, _meta(n, torch.bool))
+    assert tuple(h.shape) == tuple(l.shape) == (n,)
+    assert krc.rank_counts.launches == 1
+    [(name, args)] = recording.calls
+    assert name == "repro_rankcount" and args[4] == n
+
+
+def test_cpu_selects_never_reach_a_plan(monkeypatch):
+    """On the CPU K2 and K6 take their plain versions: no plan, no
+    launch."""
+    def boom(*a, **k):
+        raise AssertionError("select_plan called for CPU tensors")
+    monkeypatch.setattr(kbs, "select_plan", boom)
+    monkeypatch.setattr(krc, "rank_counts_by_order", boom)
+    s = torch.rand((2, 300), generator=torch.Generator().manual_seed(0))
+    for a, b in zip(kbs.batched_bottomk_select(s, 7),
+                    kbs.batched_bottomk_select_plain(s, 7)):
+        assert torch.equal(a, b)
+    act = torch.ones(300, dtype=torch.bool)
+    h, l = krc.rank_counts(s[0], s[1], s[0], act)
+    assert h.shape == (300,)

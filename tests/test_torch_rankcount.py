@@ -88,6 +88,88 @@ def test_rank_counts_plain_chunks_and_rows(monkeypatch):
         assert torch.equal(a[rows], c)
 
 
+def _tie_operands(case):
+    """Tie-heavy K6 inputs for the order reduction: weights from 4 values,
+    u repeated (quantised to 2^6 values), all-equal weights, all keys
+    inactive, a single key, and ragged n = 1500 with NaN weights and
+    signed zeros."""
+    rng = np.random.default_rng(len(case))
+    n = {"n1": 1, "n1500": 1500}.get(case, 700)
+    w = rng.lognormal(0, 1, n).astype(np.float32)
+    sh = rng.random(n).astype(np.float32)
+    sl = rng.exponential(1.0, n).astype(np.float32)
+    act = rng.random(n) < 0.9
+    if case == "four_weights":
+        w = rng.choice(np.array([0.1, 1.0, 2.5, 10.0], np.float32), n)
+        sl = (rng.integers(0, 16, n) / 4.0).astype(np.float32)
+    elif case == "repeated_u":
+        sh = (rng.integers(0, 64, n) / 64.0).astype(np.float32)
+    elif case == "equal_weights":
+        w[:] = 1.0
+        sl = (rng.integers(0, 16, n) / 4.0).astype(np.float32)
+    elif case == "all_inactive":
+        act[:] = False
+    elif case == "n1500":
+        w = rng.choice(np.array([0.1, 1.0, 10.0], np.float32), n)
+        w[::13] = -0.0
+        sl[::5] = -0.0
+        sl[1::5] = 0.0
+    return np.where(act, w, 0).astype(np.float32), sh, sl, act
+
+
+@pytest.mark.parametrize("case", ["four_weights", "repeated_u",
+                                  "equal_weights", "all_inactive", "n1",
+                                  "n1500"])
+def test_order_reduction_matches_reference(case):
+    """K6's counts as the card computes them, the order reduction
+    ``rank_counts_by_order``, with its plain counting core (strict-<
+    counts over each ordered sequence) in place of the kernel: equal to
+    the reference's Pallas kernel (interpret mode) and to the plain
+    all-pairs version, exactly."""
+    ops_ = _tie_operands(case)
+    got = krc.rank_counts_by_order(*_t(*ops_), krc.earlier_smaller_plain)
+    _assert_counts(RK.rank_counts(*ops_), got)
+    _assert_counts(krc.rank_counts_plain(*_t(*ops_)), got)
+
+
+@pytest.mark.parametrize("case", ["ties", "nan_w", "nan_s"])
+def test_order_reduction_edge_inputs(case):
+    """NaN weights or seeds on active keys (no comparison with a NaN
+    holds: such a key neither counts nor is counted), +inf seeds and
+    tied triples: the reference's oracle, exactly."""
+    rng = np.random.default_rng(7)
+    n = 600
+    w = rng.choice(np.array([0.5, 1.0, 2.0], np.float32), n)
+    sh = rng.choice(np.array([0.1, 0.2, 0.3, np.inf], np.float32), n)
+    sl = rng.choice(np.array([1.0, 3.0, np.inf], np.float32), n)
+    act = rng.random(n) < 0.9
+    if case == "nan_w":
+        w[::7] = np.nan
+    elif case == "nan_s":
+        sh[::5] = np.nan
+        sl[::3] = np.nan
+    got = krc.rank_counts_by_order(*_t(w, sh, sl, act),
+                                   krc.earlier_smaller_plain)
+    _assert_counts(RR.rank_counts_ref(w, sh, sl, act), got)
+
+
+def test_order_bits_follow_the_float_order():
+    """The order reduction's float -> int64 map is monotone and ties -0.0
+    with +0.0; the plain core's chunking gives the unchunked counts."""
+    x = torch.tensor([-np.inf, -3.0, -1e-45, -0.0, 0.0, 1e-45, 1e-38, 0.5,
+                      1.0, 3e38, np.inf], dtype=torch.float32)
+    b = krc._order_bits(x)
+    assert torch.all(b[1:] >= b[:-1])
+    assert int(b[3]) == int(b[4])
+    assert int((b[1:] > b[:-1]).sum()) == x.numel() - 2
+    assert int(b.min()) >= 0 and int(b.max()) < 1 << 32
+    s = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 9, (2, 300)).astype(np.float32))
+    pos = torch.stack([torch.randperm(300), torch.randperm(300)]).int()
+    assert torch.equal(krc.earlier_smaller_plain(s, pos, step=7),
+                       krc.earlier_smaller_plain(s, pos))
+
+
 def test_rank_counts_cpu_path_is_not_counted():
     K.reset_launch_counts()
     K.rank_counts(*_t(*_operands(300)))
