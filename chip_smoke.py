@@ -21,7 +21,8 @@ Phases (any failure exits non-zero; nothing is caught):
    tie-heavy input, and at n = 2^20 on 4,096 sampled rows plus 256 of
    each clipped weight, 0.1 and 10), with the kernel's, the plain
    version's and, where one exists, a single PyTorch call's time (CUDA
-   events, median of 21; K6's plain version of 5; K5 also at Q = 16),
+   events, median of 21; K6's plain version of 5; K5 also at Q = 16;
+   K1 also in its seeds-only mode and at the upkeep fold's n = 16,402),
    and the registers, local (spill) bytes and static shared memory of K4
    and K5 from ``cudaFuncGetAttributes`` with their launch plans;
 2. serving through ``EnginePool``: 3 tenants x 4 shards, 16 chunks of
@@ -57,7 +58,19 @@ Phases (any failure exits non-zero; nothing is caught):
    (k = 64, m_cap = 4096) against ``ops.universal_capping_kernel`` (K6 at
    2^20): members and hl equal, size within Thm 6.1's bound, cap_T
    estimates within 4 cv for T in {0.5, 1, 2, 5}; then a warm sample and
-   a shard fold under the profiler (wall, device time, idle share).
+   a shard fold under the profiler (wall, device time, idle share);
+6. scale-out serving through ``ShardedEnginePool``: one tenant of the
+   smoke spec over 4 in-process hosts x 16 shards on the card, 16 chunks
+   of 1,048,576 rows with a durable WAL, a query batch (B = 128) after
+   each; every FRESH answer bit-equal to a single-host
+   ``SegmentQueryEngine`` twin, one cross-host merge per epoch, one absorb
+   / one cross-host query moving the counters by exactly
+   (2, 4, 2, 0, 0, 0) / (1, 2, 1, 1, 0, 0), a host kill answered STALE
+   with the last good values, ``rebalance`` FRESH and bit-equal again,
+   and close + ``ShardedEnginePool.open`` back at the post-move placement
+   with bit-identical answers; absorb and query p50/p95, the cross-host
+   merge's wall time (synchronised before and after, median of 5) and the
+   rebalance's wall time.
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
@@ -101,6 +114,8 @@ UNIVERSAL_K = 64
 UNIVERSAL_SHARDS = 16
 CAPPING_M_CAP = 4096
 SERVING_KERNELS = ("seeds", "blockselect", "compact", "segquery")
+SCALE_HOSTS = 4                 # in-process hosts of phase 6
+SCALE_SHARDS = 16
 
 
 def _fail(msg: str):
@@ -269,18 +284,56 @@ def phase_kernels(torch, C, K, dev):
                    "K1 priority: seeds differ for sum/count/thresh/cap")
         err = max(err, max_abs(sk, sp), max_abs(fk, fp))
     nf = len(enc)
-    t_k = cuda_ms(torch, lambda: K.fused_seeds_fvals(keys, w, act, enc,
-                                                     "ppswor", 17))
-    t_p = cuda_ms(torch, lambda: fused_seeds_fvals_plain(keys, w, act, enc,
-                                                         "ppswor", 17))
-    # bytes: key, weight, active read once; F seeds + F f-values written.
-    # ops: per row hash->u->r (~30) plus per objective f(w), test, divide.
-    b_ms, b_by = bound(n * 9 + 2 * nf * n * 4, n * (30 + 4 * nf))
-    out["seeds"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    print(f"K1 seeds n={n} F={nf}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms,"
-          f" bound {b_ms:.4f} ms ({b_by}); exact/<=2ulp checks passed",
-          flush=True)
+    # the seeds-only mode (fused_seeds), and the upkeep fold's shape
+    # (two slabs, n = 16,402) in both modes
+    up = 2 * cap
+    for n_, k_, w_, a_ in ((n, keys, w, act),
+                           (up, keys[:up], w[:up], act[:up])):
+        sp, fp = fused_seeds_fvals_plain(k_, w_, a_, enc, "ppswor", 17)
+        so = K.fused_seeds(k_, w_, a_, enc, "ppswor", 17)
+        sk, fk = K.fused_seeds_fvals(k_, w_, a_, enc, "ppswor", 17)
+        torch.cuda.synchronize()
+        _check(ulps(so, sp) <= 2 and ulps(sk, sp) <= 2,
+               f"K1 n={n_}: seeds beyond 2 ulp")
+        _check(torch.equal(so, sk), f"K1 n={n_}: seeds-only bits differ")
+        _check(torch.equal(fk[exact_rows], fp[exact_rows])
+               and ulps(fk[moment_rows], fp[moment_rows]) <= 2,
+               f"K1 n={n_}: fvals beyond their tolerance")
+        err = max(err, max_abs(so, sp))
+
+    def k1_times(k_, w_, a_):
+        n_ = k_.shape[0]
+        # bytes: key, weight, active read once; F seeds (+ F f-values)
+        # written. ops: per row hash->u->r (~30) plus per objective f(w),
+        # test, divide.
+        ops = n_ * (30 + 4 * nf)
+        b_f = bound(n_ * 9 + 2 * nf * n_ * 4, ops)
+        b_s = bound(n_ * 9 + nf * n_ * 4, ops)
+        return dict(
+            ms=cuda_ms(torch, lambda: K.fused_seeds_fvals(
+                k_, w_, a_, enc, "ppswor", 17)),
+            plain_ms=cuda_ms(torch, lambda: fused_seeds_fvals_plain(
+                k_, w_, a_, enc, "ppswor", 17)),
+            bound_ms=b_f[0], bound_by=b_f[1],
+            seeds_only_ms=cuda_ms(torch, lambda: K.fused_seeds(
+                k_, w_, a_, enc, "ppswor", 17)),
+            seeds_only_bound_ms=b_s[0])
+
+    big, small = k1_times(keys, w, act), k1_times(keys[:up], w[:up],
+                                                  act[:up])
+    out["seeds"] = dict(max_abs_err=err, **big, library_ms=None,
+                        upkeep_n=up, upkeep_ms=small["ms"],
+                        upkeep_bound_ms=small["bound_ms"],
+                        upkeep_seeds_only_ms=small["seeds_only_ms"],
+                        upkeep_seeds_only_bound_ms=small[
+                            "seeds_only_bound_ms"])
+    for n_, t in ((n, big), (up, small)):
+        print(f"K1 seeds n={n_} F={nf}: kernel {t['ms']:.4f} ms "
+              f"(seeds only {t['seeds_only_ms']:.4f}), plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; seeds only "
+              f"{t['seeds_only_bound_ms']:.4f}); exact/<=2ulp checks "
+              f"passed, seeds-only bits equal", flush=True)
 
     # K2 ------------------------------------------------------------------
     # the main path's two selects: multisketch_select over the F seed rows
@@ -1161,6 +1214,144 @@ def phase_universal(torch, C, K, dev, n: int = UNIVERSAL_N,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: scale-out serving through ShardedEnginePool
+# ---------------------------------------------------------------------------
+
+def serving_ms(times):
+    return (f"p50 {np.percentile(times, 50):.3f} p95 "
+            f"{np.percentile(times, 95):.3f}")
+
+
+def phase_scaleout(torch, C, K, pool_mod, query_mod, dev, card: str):
+    """One tenant over SCALE_HOSTS in-process hosts x SCALE_SHARDS shards
+    at the serving width: every FRESH answer bit-equal to a single-host
+    engine twin, a host kill answered STALE with the last-good values, a
+    rebalance FRESH and bit-equal again, close + open back at the
+    post-move placement with bit-identical answers, and the launch counts
+    of one absorb and one cross-host query. Returns the launch counts of
+    the phase's serving run."""
+    from repro_torch.launch.summary import merge_host_slabs
+    ShardedEnginePool = pool_mod.ShardedEnginePool
+    spec = smoke_spec(C, "ppswor")
+    table = predicate_table(C, np.random.default_rng(8), 2 ** 31 - 1)
+    rng = np.random.default_rng(600)
+    twin = query_mod.SegmentQueryEngine(spec, shards=SCALE_SHARDS,
+                                        device=dev)
+    hosts = tuple(range(SCALE_HOSTS))
+    absorb_ms, merge_query_ms, memo_query_ms = [], [], []
+
+    def fresh_equal(r, what):
+        _check(r.status == pool_mod.FRESH and r.epoch_lag == 0,
+               f"scale-out {what}: response {r.status} lag {r.epoch_lag}")
+        _check(np.array_equal(r.values, twin.query_many(predicates=table)),
+               f"scale-out {what}: answers differ from the twin's bits")
+
+    def timed(fn, times):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        pool = ShardedEnginePool(hosts=hosts, durability_dir=d,
+                                 sleep=lambda s: None, device=dev)
+        placement = pool.create_stream("s6", spec, shards=SCALE_SHARDS)
+        _check(sorted(set(placement)) == list(hosts),
+               f"scale-out: placement {placement} leaves a host idle")
+        K.reset_launch_counts()
+        for c in range(N_CHUNKS):
+            keys, w = tenant_chunk(6, c, rng)
+            r = timed(lambda: pool.absorb("s6", keys, w,
+                                          shard=c % SCALE_SHARDS),
+                      absorb_ms)
+            _check(r.applied and r.accepted == CHUNK,
+                   f"scale-out absorb {c} not applied: {r}")
+            twin.absorb(keys, w, shard=c % SCALE_SHARDS)
+            fresh_equal(timed(lambda: pool.query("s6", predicates=table),
+                              merge_query_ms), f"chunk {c}")
+            fresh_equal(timed(lambda: pool.query("s6", predicates=table),
+                              memo_query_ms), f"chunk {c} (memoised)")
+        counts = K.launch_counts()
+        for name in SERVING_KERNELS:
+            _check(counts[name] > 0,
+                   f"kernel {name} never launched on the scale-out path")
+        st = pool._stream("s6")
+        _check(st.cross_merges == N_CHUNKS,
+               f"scale-out: {st.cross_merges} cross-host merges for "
+               f"{N_CHUNKS} epochs")
+        slabs = [pool._host_engine(st, pool._hosts[h]).merged
+                 for h in sorted(set(placement))]
+        merge_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            merge_host_slabs(spec, slabs)
+            torch.cuda.synchronize()
+            merge_ms.append((time.perf_counter() - t0) * 1e3)
+        merge_ms = float(np.median(merge_ms))
+
+        # one controlled epoch: an absorb, then a cross-host query
+        keys, w = tenant_chunk(6, N_CHUNKS, rng)
+        K.reset_launch_counts()
+        pool.absorb("s6", keys, w, shard=1)
+        absorb_counts = K.launch_counts()
+        twin.absorb(keys, w, shard=1)
+        K.reset_launch_counts()
+        good = pool.query("s6", predicates=table)
+        query_counts = K.launch_counts()
+        fresh_equal(good, "controlled epoch")
+        want_a = {"seeds": 2, "blockselect": 4, "compact": 2, "segquery": 0,
+                  "servicecost": 0, "rankcount": 0}
+        want_q = {"seeds": 1, "blockselect": 2, "compact": 1, "segquery": 1,
+                  "servicecost": 0, "rankcount": 0}
+        _check(absorb_counts == want_a,
+               f"scale-out absorb launches {absorb_counts}")
+        _check(query_counts == want_q,
+               f"scale-out query launches {query_counts}")
+
+        # host loss, then the rebalance that rebuilds its shards
+        victim = placement[0]
+        pool.kill_host(victim)
+        r = pool.query("s6", predicates=table)
+        _check(r.status == pool_mod.STALE and r.error is not None,
+               f"scale-out: after the kill {r.status}")
+        _check(np.array_equal(r.values, good.values),
+               "scale-out: STALE answers differ from the last good ones")
+        t0 = time.perf_counter()
+        out = pool.rebalance("s6")["s6"]
+        torch.cuda.synchronize()
+        rebalance_ms = (time.perf_counter() - t0) * 1e3
+        _check(out["error"] is None and out["moved"]
+               and victim not in out["placement"],
+               f"scale-out rebalance: {out['error']} {out['placement']}")
+        fresh_equal(pool.query("s6", predicates=table), "after rebalance")
+        pool.close()
+        t0 = time.perf_counter()
+        reopened = ShardedEnginePool.open(d, sleep=lambda s: None,
+                                          device=dev)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        _check(reopened.placement("s6") == out["placement"],
+               "scale-out: reopened placement is not the post-move one")
+        fresh_equal(reopened.query("s6", predicates=table), "after open")
+        reopened.close()
+    print(f"scale-out ({card}): {SCALE_HOSTS} hosts x {SCALE_SHARDS} shards,"
+          f" {N_CHUNKS + 1} chunks of {CHUNK} rows, B={B}: every FRESH "
+          f"answer bit-equal to the single-host twin; absorb ms (WAL on) "
+          f"{serving_ms(absorb_ms)}; query ms with the cross-host merge "
+          f"{serving_ms(merge_query_ms)}, memoised "
+          f"{serving_ms(memo_query_ms)}; merge_host_slabs of "
+          f"{len(slabs)} slabs {merge_ms:.3f} ms wall (synchronised, median "
+          f"of 5); kill -> STALE "
+          f"with the last good answers; rebalance {rebalance_ms:.1f} ms "
+          f"wall ({len(out['moved'])} shards moved) -> FRESH bit-equal; "
+          f"close + open {open_ms:.1f} ms -> post-move placement, "
+          f"bit-identical; launches of one absorb {absorb_counts}, of one "
+          f"cross-host query {query_counts}; serving run launches {counts}",
+          flush=True)
+    return counts
+
+
 def member_triples(torch, sk):
     """A sketch's member slots as a sorted list of (key, weight, prob)."""
     m = sk.member & sk.valid
@@ -1208,6 +1399,7 @@ def main() -> int:
     phase_durability(C, pool_mod)
     metric_counts = phase_metric(torch, C, K, dev)
     universal_counts = phase_universal(torch, C, K, dev)
+    phase_scaleout(torch, C, K, pool_mod, query_mod, dev, card)
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),

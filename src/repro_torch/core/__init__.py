@@ -25,7 +25,8 @@ from .multi_sketch import (MultiSketch, MultiSketchSpec, multisketch_absorb,
                            multisketch_absorb_inline,
                            multisketch_absorb_into,
                            multisketch_absorb_slabs, multisketch_build,
-                           multisketch_empty, multisketch_estimate_batch,
+                           multisketch_empty, multisketch_estimate,
+                           multisketch_estimate_batch,
                            multisketch_finalize, multisketch_merge,
                            multisketch_merge_stacked, multisketch_overflow,
                            multisketch_query_many, multisketch_select,
@@ -59,7 +60,7 @@ __all__ = [
     "MultiSketch", "MultiSketchSpec", "multisketch_absorb",
     "multisketch_absorb_inline", "multisketch_absorb_into",
     "multisketch_absorb_slabs", "multisketch_build", "multisketch_empty",
-    "multisketch_estimate_batch", "multisketch_finalize",
+    "multisketch_estimate", "multisketch_estimate_batch", "multisketch_finalize",
     "multisketch_merge", "multisketch_merge_stacked",
     "multisketch_overflow", "multisketch_query_many", "multisketch_select",
     "multisketch_slab_bytes", "quarantine_chunk",

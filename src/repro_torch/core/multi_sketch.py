@@ -491,6 +491,14 @@ def multisketch_overflow(sk: MultiSketch) -> torch.Tensor:
     return torch.all(sk.valid)
 
 
+def multisketch_estimate(sk: MultiSketch, f: StatFn,
+                         segment_fn=None) -> torch.Tensor:
+    """HT estimate of Q(f, H) from the slab (paper Eq. 5: inverse p^(F)
+    weighting). ``segment_fn``: vectorized key predicate for H."""
+    from .merge import sketch_estimate
+    return sketch_estimate(sk, f, segment_fn)
+
+
 def multisketch_estimate_batch(sk: MultiSketch, fs, predicates,
                                use_kernels: Optional[bool] = None
                                ) -> torch.Tensor:

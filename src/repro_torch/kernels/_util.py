@@ -95,8 +95,8 @@ _VP, _I, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
 # C entry points of csrc/*.cu: every pointer (and the stream) is c_void_p;
 # each returns cudaGetLastError() after its launch
 _SIGNATURES = {
-    # keys, w, active, seeds, fvals, n, nf, kinds*, params*, seed, ppswor,
-    # stream
+    # keys, w, active, seeds, fvals (or NULL), n, nf, kinds*, params*, seed,
+    # ppswor, stream
     "repro_seeds": (_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _U32, _I,
                     _VP),
     # seeds, vals, idx, nf, n, span, kb, stream

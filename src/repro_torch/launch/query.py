@@ -1,6 +1,7 @@
 """Device-resident segment-query engine (the serving tier).
 
-Port of ``repro/launch/query.py`` ``SegmentQueryEngine``:
+Port of ``repro/launch/query.py`` ``SegmentQueryEngine`` (all but
+``from_sharded``, which needs the sharded build):
 
   * per-shard ``MultiSketch`` slabs stay resident on the device; absorbing
     a chunk folds it into its shard's slab;
@@ -206,6 +207,22 @@ class SegmentQueryEngine:
                 use_kernels=self.use_kernels)
             self._stamp_absorb_time()
         self._maybe_auto_gc()
+        self._update_gauges()
+
+    def load_stacked(self, stacked: MultiSketch):
+        """Adopt a stacked batch of per-shard slabs (leaves [m, ...]) as
+        the resident state, copied to the engine's device; the merge stays
+        lazy until the first query. Wholesale replacement: the merged-slab
+        cache is dropped (full path next) and the adopted layout becomes
+        the new un-truncatable base layout."""
+        m = stacked.keys.shape[0]
+        self._shards = [MultiSketch(*(x[i].to(self.device, copy=True)
+                                      for x in stacked)) for i in range(m)]
+        self._min_shards = m
+        self._epoch += 1
+        self._shard_epochs = [self._epoch] * m
+        self._shard_live = [True] * m
+        self._drop_merged_cache()
         self._update_gauges()
 
     def _drop_merged_cache(self):

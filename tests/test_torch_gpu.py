@@ -74,6 +74,66 @@ def test_seeds_kernel_matches_plain(cuda, scheme):
     assert_ulp(f, fp, 2, "fvals")
 
 
+def _assert_k1_close(objs, s, f, sp, fp):
+    """K1 against its plain version: sum/count/thresh/cap f-values bit for
+    bit, moment f-values and seeds within 2 ulp."""
+    assert_ulp(s, sp, 2, "seeds")
+    if f is None:
+        return
+    for j, (kind, _) in enumerate(objs):
+        if kind == 4:
+            assert_ulp(f[j], fp[j], 2, f"fvals[{j}]")
+        else:
+            assert torch.equal(f[j], fp[j]), f"fvals[{j}]"
+
+
+@pytest.mark.parametrize("want_fvals", [True, False],
+                         ids=["fvals", "seeds_only"])
+@pytest.mark.parametrize("nf", [1, 3, 8])
+@pytest.mark.parametrize("n", [1, 3, 5, 127, 129, 1023, 1025, 4097, 16_402,
+                               1_056_777])
+def test_seeds_kernel_rows_heads_and_tails(cuda, n, nf, want_fvals):
+    """Odd n (and n = 2 mod 4) put row j of the [F, n] outputs at every
+    16-byte offset, so each row's shifted head, aligned body and scalar
+    tail are written; the last partial quad and the last partial tile are
+    hit too."""
+    rng = np.random.default_rng(n + nf)
+    keys, w, act = _on(cuda, rng.integers(0, 2 ** 31 - 1, n).astype(np.int32),
+                       rng.lognormal(0, 1.5, n).astype(np.float32),
+                       rng.random(n) < 0.9)
+    w[::7] = 0.0
+    objs = OBJ8[:nf]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    s, f = ks.seeds_and_fvals(keys, w, act, objs, "ppswor", 3,
+                              want_fvals=want_fvals)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    sp, fp = ks.fused_seeds_fvals_plain(keys, w, act, objs, "ppswor", 3)
+    _assert_k1_close(objs, s, f, sp, fp)
+    if not want_fvals:
+        assert f is None
+        # the seeds alone: one [F, n] float32 array (allocator-rounded)
+        assert grown <= ((nf * n * 4 + 511) // 512) * 512 + 512
+    assert torch.equal(K.fused_seeds(keys, w, act, objs, "ppswor", 3), s)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_seeds_kernel_on_unaligned_input_views(cuda, offset):
+    """Inputs that start off a 16-byte boundary (views into a larger
+    buffer) take the kernel's scalar loads."""
+    rng = np.random.default_rng(offset)
+    n = 5003
+    keys, w, act = _on(cuda, rng.integers(0, 2 ** 31 - 1, n).astype(np.int32),
+                       rng.lognormal(0, 1.5, n).astype(np.float32),
+                       rng.random(n) < 0.9)
+    kv, wv, av = keys[offset:], w[offset:], act[offset:]
+    assert kv.data_ptr() % 16 != 0
+    s, f = K.fused_seeds_fvals(kv, wv, av, OBJ8, "priority", 5)
+    sp, fp = ks.fused_seeds_fvals_plain(kv, wv, av, OBJ8, "priority", 5)
+    _assert_k1_close(OBJ8, s, f, sp, fp)
+
+
 @pytest.mark.parametrize("n,k", [(5000, 5), (5000, 1025), (5000, 2049),
                                  (100, 64)])
 def test_blockselect_kernel_matches_plain(cuda, n, k):

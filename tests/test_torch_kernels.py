@@ -70,6 +70,23 @@ def test_fused_seeds_rejects_bogus_scheme_and_counts_no_cpu_launch():
     assert K.launch_counts() == before       # the plain version ran
 
 
+@pytest.mark.parametrize("nf", [1, 3, 8])
+@pytest.mark.parametrize("n", [1, 3, 5, 4097, 16_402])
+def test_fused_seeds_only_matches_pallas_and_keeps_no_fvals(n, nf):
+    """The seeds-only mode against the reference's ``fused_seeds`` (Pallas,
+    interpret mode): seeds within SEED_ULP, and no f-value array made."""
+    keys, w, act = _inputs(n, n + nf)
+    objs = OBJ8[:nf]
+    rs = RK.fused_seeds(keys, w, act, objs, "ppswor", 7)
+    ps = K.fused_seeds(*_t(keys, w, act), objs, "ppswor", 7)
+    assert tuple(ps.shape) == tuple(rs.shape) == (nf, n)
+    assert_ulp(rs, ps, SEED_ULP, "seeds")
+    seeds, fvals = K.seeds.seeds_and_fvals(*_t(keys, w, act), objs,
+                                           "ppswor", 7, want_fvals=False)
+    assert fvals is None
+    assert torch.equal(seeds, ps)
+
+
 # ----------------------------------------------------------------------- K2
 @pytest.mark.parametrize("n,k,nf", [(100, 5, 1), (1500, 64, 3),
                                     (3000, 17, 1), (60, 64, 1)])
