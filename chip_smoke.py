@@ -72,11 +72,38 @@ Phases (any failure exits non-zero; nothing is caught):
    merge's wall time (synchronised before and after, median of 5) and the
    rebalance's wall time.
 
+7. the training path at the full width of qwen2-1.5b (28 layers,
+   d_model 1536, GQA 12/2 heads, d_ff 8960, vocab 151,936; 1,543,714,304
+   fp32 parameters, random from seed 0): (a) ``train.main`` for 6 steps,
+   batch 8 x seq 128, mesh 1x1x1 (NCCL at world size 1), the sampled
+   exchange (k = 256), importance sampling and the telemetry fold, a
+   checkpoint every 3 steps; each step's launches (9, 10, 1, 0, 0, 0); a
+   resume from step 3 whose restored arrays carry the saved crc32s and
+   whose losses 4-6 equal the first run's within RESUME_RTOL; one more
+   step profiled whole and in its parts (forward + backward, exchange,
+   AdamW, telemetry), the telemetry fold's kernel path equal to its plain
+   path; the exchange at one pod returning its input;
+   ``_sample_leaf`` through K1 + K2 against their plain versions on the
+   real gradient of ``layers.attn.wq`` (66,060,288 rows) and the kernel
+   alone on ``layers.mlp.wg`` (385,351,680 rows: at most 768 valid slots,
+   finite positive taus, the HT |g| mass within 4 / sqrt(255)), where K1
+   (seeds only, F = 3; within 2 ulp of plain) and K2 ([3, n], k = 257;
+   equal to plain) are timed against their plain versions and
+   ``torch.topk``; (b) two processes on the card over
+   gloo, mesh 2x1x1, the same widths at 2 layers: 3 compressed steps,
+   the exchanged ``layers.attn.wq`` gradient equal to the formula over the
+   gathered slabs on the host, ``sharded_multisketch`` over the two
+   ranks' halves of 2^20 rows equal to the one-shot build (members and
+   taus exact, probs within 1e-5) and ``from_sharded``'s merged slab
+   bit-equal to it.
+
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
 from phase 1; K2's row is its global route, with both routes named under
 ``routes``; K6's row gives its time at n = 2^20 and its plain version's
-at ``plain_n`` = 65,536, beside the kernel's own time there) and, last,
+at ``plain_n`` = 65,536, beside the kernel's own time there; every row's
+``train_launches`` are phase 7a's first run, K1's and K2's ``exchange_*``
+keys their times at the exchange's largest leaf) and, last,
 ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -116,6 +143,11 @@ CAPPING_M_CAP = 4096
 SERVING_KERNELS = ("seeds", "blockselect", "compact", "segquery")
 SCALE_HOSTS = 4                 # in-process hosts of phase 6
 SCALE_SHARDS = 16
+TRAIN_ARCH = "qwen2-1.5b"       # phase 7: the full-width training path
+TRAIN_STEPS = 6
+TRAIN_STEP_LAUNCHES = (9, 10, 1, 0, 0, 0)  # 8 sampled leaves + 1 fold
+RESUME_RTOL = 1e-5              # resumed losses vs the uninterrupted run
+WORKER_TIMEOUT_S = 400
 
 
 def _fail(msg: str):
@@ -1352,6 +1384,427 @@ def phase_scaleout(torch, C, K, pool_mod, query_mod, dev, card: str):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the training path (qwen2-1.5b at full width)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+              "8", "--seq", "128", "--mesh", "1x1x1", "--compress",
+              "--importance-sampling", "--ckpt-every", "3", "--log-every",
+              "1"]
+
+
+def _train_run(torch, K, train, argv):
+    """train.main(argv) with the launch counts reset just before it: (final
+    state, {step: loss}, {step: seconds}, per-step launch deltas, launches
+    before the first step, the whole run's launches, the restored state's
+    crc32 per checkpoint path or None)."""
+    import zlib
+    from repro_torch.ckpt.manager import _flatten
+    rec = {"loss": {}, "sec": {}, "steps": [], "crc": None}
+
+    def cb(event, **kw):
+        if event == "restored":
+            rec["crc"] = {
+                path: (zlib.crc32(memoryview(np.ascontiguousarray(
+                    x.detach().cpu().numpy()))) & 0xFFFFFFFF,
+                       str(x.dtype).replace("torch.", ""), tuple(x.shape))
+                for path, x in _flatten(kw["state"]).items()}
+        elif event == "start":
+            rec["before"] = tuple(K.launch_counts().values())
+            rec["last"] = K.launch_counts()
+        elif event == "step":
+            rec["loss"][kw["step"]] = float(kw["metrics"]["loss"])
+            rec["sec"][kw["step"]] = kw["seconds"]
+            rec["steps"].append(counts_delta(K, rec["last"]))
+            rec["last"] = K.launch_counts()
+    K.reset_launch_counts()
+    state = train.main(argv, callback=cb)
+    return state, rec, tuple(K.launch_counts().values())
+
+
+def _leaf_grads(torch, Mod, TT, cfg, params, batch):
+    """The gradient tree of the loss at ``params`` (contiguous leaves)."""
+    model = Mod.Model(cfg, params)
+    loss, _ = model(batch)
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return TT.unflatten((n, g.contiguous()) for (n, _), g in zip(named,
+                                                                  grads))
+
+
+def phase_train(torch, C, K, dev):
+    """7a: ``train.main`` for qwen2-1.5b at full width, 6 steps with the
+    sampled exchange at one pod, importance sampling, telemetry and a
+    checkpoint every 3 steps; a resume from step 3 (restored state equal
+    to the saved one bit for bit, losses of steps 4-6 within RESUME_RTOL);
+    a profiled step and its parts; the exchange's identity at one pod;
+    ``_sample_leaf`` kernel against plain at ``layers.attn.wq``, the kernel
+    alone at ``layers.mlp.wg`` (385,351,680 rows), where K1 and K2 are
+    timed. Returns the K1/K2 exchange-shape stats and the run's launch
+    counts."""
+    import shutil
+    from repro_torch import tree as TT
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, Loader, SyntheticCorpus
+    from repro_torch.distopt import compression as CP
+    from repro_torch.kernels import blockselect as kbs
+    from repro_torch.kernels import seeds as ks
+    from repro_torch.launch import steps as St
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # two 18.5 GB checkpoints: inside the checkout (build/ is ignored by
+    # git), on the disk that holds it, not in a possibly small TMPDIR
+    (ROOT / "build").mkdir(exist_ok=True)
+    ck = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        state, rec, run_counts = _train_run(torch, K, train,
+                                            TRAIN_ARGV + ["--ckpt-dir", ck])
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [rec["loss"][s] for s in range(1, TRAIN_STEPS + 1)]
+        _check(all(np.isfinite(losses)), f"train losses {losses}")
+        per_step = set(rec["steps"])
+        _check(per_step == {TRAIN_STEP_LAUNCHES},
+               f"launches per step {rec['steps']}, want "
+               f"{TRAIN_STEP_LAUNCHES}")
+        _check(int(state["opt"]["step"]) == TRAIN_STEPS, "opt step")
+        secs = [rec["sec"][s] for s in range(1, TRAIN_STEPS + 1)]
+        print(f"train qwen2-1.5b full width ({cfg.num_layers} layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size}), batch 8 x "
+              f"seq 128, sampled exchange k = 256 at one pod: losses "
+              f"{[round(x, 4) for x in losses]}; step wall s "
+              f"{[round(x, 4) for x in secs]}, p50 "
+              f"{float(np.median(secs)):.4f} (steps 2-6 "
+              f"{float(np.median(secs[1:])):.4f}); run {run_s:.1f} s with "
+              f"2 checkpoints; peak memory {peak:.2f} GiB; launches: the "
+              f"importance build {rec['before']}, each step "
+              f"{TRAIN_STEP_LAUNCHES}, the run {run_counts}", flush=True)
+        del state
+        torch.cuda.empty_cache()
+
+        # resume from step 3: drop the newer checkpoint, run steps 4-6 again
+        shutil.rmtree(Path(ck) / f"step_{TRAIN_STEPS:010d}")
+        t0 = time.perf_counter()
+        state, rec2, _ = _train_run(torch, K, train, TRAIN_ARGV + [
+            "--ckpt-dir", ck, "--resume"])
+        resume_s = time.perf_counter() - t0
+        _, meta = CheckpointManager(ck).read_meta(3)
+        crc = rec2["crc"]
+        _check(crc is not None and set(crc) == set(meta["arrays"]),
+               "restored arrays differ from the checkpoint's")
+        for path, info in meta["arrays"].items():
+            _check(crc[path] == (info["crc"], info["dtype"],
+                                 tuple(info["shape"])),
+                   f"restored {path} differs from the saved state")
+        gaps = [abs(rec2["loss"][s] - rec["loss"][s]) / abs(rec["loss"][s])
+                for s in range(4, TRAIN_STEPS + 1)]
+        _check(sorted(rec2["loss"]) == [4, 5, 6] and max(gaps)
+               <= RESUME_RTOL, f"resumed losses {rec2['loss']} vs "
+               f"{rec['loss']}")
+        print(f"train resume from step 3: restored state equal to the "
+              f"saved one ({len(crc)} arrays, crc32), losses 4-6 "
+              f"{[rec2['loss'][s] for s in (4, 5, 6)]}, max relative gap "
+              f"{max(gaps):.3g} (<= {RESUME_RTOL}), run {resume_s:.1f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+    # one more step, profiled, and its parts
+    mesh = Mesh((1, 1, 1), ("pod", "data", "model"), device=dev)
+    opt_cfg = adamw.OptConfig(peak_lr=3e-3, warmup_steps=TRAIN_STEPS // 20
+                              + 1, total_steps=TRAIN_STEPS)
+    step_fn, _ = St.make_train_step(cfg, opt_cfg, mesh,
+                                    compress=dict(k=256, min_size=65536),
+                                    telemetry=train.TEL_SPEC)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8,
+                      n_docs=20_000)
+    loader = Loader(SyntheticCorpus(dcfg), dcfg)
+    batch = train.make_batch(cfg, loader.batch(TRAIN_STEPS), dcfg, dev)
+    box = {}
+
+    def whole():
+        box["out"] = step_fn(state, batch)
+    idle, wall, dev_ms, top = profiled(torch, whole)
+    del box["out"]
+    torch.cuda.empty_cache()
+    parts = {}
+
+    def fwd_bwd():
+        box["g"] = _leaf_grads(torch, Mod, TT, cfg, state["params"], batch)
+    parts["forward+backward"] = profiled(torch, fwd_bwd)
+
+    def exchange():
+        box["x"] = CP.exchange_grads(mesh, dict(box["g"]), TRAIN_STEPS,
+                                     k=256, min_size=65536)
+    parts["exchange"] = profiled(torch, exchange)
+
+    def adam():
+        with torch.no_grad():
+            box["a"] = adamw.apply_updates(state["params"], box["x"],
+                                           state["opt"], opt_cfg)
+    parts["adamw"] = profiled(torch, adam)
+    del box["a"], box["x"]
+    torch.cuda.empty_cache()
+    tkeys = torch.arange(8, dtype=torch.int32, device=dev) + (6 << 16)
+
+    def fold():
+        box["t"] = C.multisketch_absorb_inline(
+            train.TEL_SPEC, state["tel"], tkeys,
+            torch.full((8,), 10.0, device=dev), use_kernels=True)
+    parts["telemetry"] = profiled(torch, fold)
+    plain_fold = C.multisketch_absorb_inline(
+        train.TEL_SPEC, state["tel"], tkeys,
+        torch.full((8,), 10.0, device=dev), use_kernels=False)
+    for name, x, y in zip(plain_fold._fields, box.pop("t"), plain_fold):
+        _check(torch.equal(x, y), f"telemetry fold {name}: kernel path != "
+               f"plain path")
+    print(f"train telemetry fold: kernel path = plain path (all 8 "
+          f"fields)", flush=True)
+    print(f"train step profiled: wall {wall:.3f} ms, device {dev_ms:.3f} ms, "
+          f"idle share {idle:.3f}; top {top}", flush=True)
+    for name, (pi, pw, pd, pt) in parts.items():
+        print(f"train step part {name}: wall {pw:.3f} ms, device {pd:.3f} "
+              f"ms, idle {pi:.3f}; top {pt}", flush=True)
+
+    # at one pod the exchange returns its input gradient
+    grads = box.pop("g")
+    inp = dict(TT.flatten(grads))
+    out = dict(TT.flatten(CP.exchange_grads(mesh, grads, TRAIN_STEPS, k=256,
+                                            min_size=65536)))
+    for path, g in inp.items():
+        _check(torch.equal(out[path], g), f"exchange at one pod changed "
+               f"{path}")
+    negz = sum(int(((g == 0) & torch.signbit(g)).sum()) for g in inp.values())
+    del out, state
+    torch.cuda.empty_cache()
+
+    # _sample_leaf: kernel against plain at layers.attn.wq
+    wq = inp["layers.attn.wq"]
+    seed = (17 + 5 * 1_000_003 + TRAIN_STEPS) & 0xFFFFFFFF
+    a = CP._sample_leaf(wq, 256, seed, 0.01)
+    b = CP._sample_leaf(wq, 256, seed, 0.01, use_kernels=False)
+    for name in ("keys", "valid", "member", "aux", "weights"):
+        _check(torch.equal(getattr(a, name), getattr(b, name)),
+               f"_sample_leaf {name} kernel != plain at wq")
+    su, tu, pu = ulps(a.seeds, b.seeds), ulps(a.taus, b.taus), ulps(
+        a.probs, b.probs)
+    _check(su <= 2 and tu <= 2 and pu <= 4,
+           f"_sample_leaf ulps seeds {su} taus {tu} probs {pu}")
+    print(f"train exchange: at one pod every leaf returned as it came "
+          f"({len(inp)} leaves, {negz} -0.0 entries); _sample_leaf at "
+          f"layers.attn.wq ({wq.numel():,} rows) kernel = plain: keys, "
+          f"valid, member, weights exact, seeds {su} taus {tu} probs {pu} "
+          f"ulp, {int(a.valid.sum())} valid slots", flush=True)
+
+    # the kernel alone at layers.mlp.wg, 385,351,680 rows
+    wg = inp["layers.mlp.wg"].reshape(-1)
+    del inp, grads, a, b
+    torch.cuda.empty_cache()
+    sk = CP._sample_leaf(wg, 256, seed, 0.01)
+    nv = int(sk.valid.sum())
+    _check(0 < nv <= 768, f"wg valid slots {nv}")
+    _check(bool(torch.isfinite(sk.taus).all() and (sk.taus > 0).all()),
+           f"wg taus {sk.taus.tolist()}")
+    m = sk.valid
+    est = float((sk.weights[m].abs().double() / sk.probs[m].double()).sum())
+    exact = float(wg.abs().double().sum())
+    rel = abs(est / exact - 1)
+    _check(rel <= 4 / np.sqrt(255), f"wg HT |g| mass off by {rel:.3f}")
+    n = wg.numel()
+    keys = torch.arange(n, dtype=torch.int32, device=dev)
+    wn = wg.abs()
+    wn /= torch.clamp_min(wn.max(), 1e-30)
+    act = wn > 0
+    del wg
+    enc = CP._leaf_spec(256, 0.01, "ppswor").kernel_objectives()
+    k1 = cuda_ms(torch, lambda: ks.fused_seeds(keys, wn, act, enc, "ppswor",
+                                               seed), reps=7, inner=1)
+    seeds = ks.fused_seeds(keys, wn, act, enc, "ppswor", seed)
+    s1 = ulps(seeds, ks.fused_seeds_fvals_plain(
+        keys, wn, act, enc, "ppswor", seed, want_fvals=False)[0])
+    _check(s1 <= 2, f"K1 at [3, 385M] {s1} ulp from plain")
+    k2 = cuda_ms(torch, lambda: kbs.batched_bottomk_select(seeds, 257),
+                 reps=7, inner=1)
+    kv, _, kt = kbs.batched_bottomk_select(seeds, 257)
+    lib = cuda_ms(torch, lambda: torch.topk(seeds, 257, dim=1,
+                                            largest=False), reps=3, inner=1)
+    p2 = cuda_ms(torch, lambda: kbs.batched_bottomk_select_plain(seeds, 257),
+                 reps=3, inner=1)
+    pv, _, pt = kbs.batched_bottomk_select_plain(seeds, 257)
+    _check(torch.equal(kv, pv) and torch.equal(kt, pt),
+           "K2 at [3, 385M] != plain")
+    del seeds, kv, pv
+    torch.cuda.empty_cache()
+    p1 = cuda_ms(torch, lambda: ks.fused_seeds_fvals_plain(
+        keys, wn, act, enc, "ppswor", seed, want_fvals=False), reps=3,
+        inner=1)
+    nf = len(enc)
+    b1, by1 = bound(n * (4 + 4 + 1 + 4 * nf), 0)
+    b2, by2 = bound(4 * nf * n, 0)
+    print(f"train exchange at layers.mlp.wg ({n:,} rows): {nv} valid slots, "
+          f"taus {[round(x, 6) for x in sk.taus.tolist()]}, HT |g| mass "
+          f"relative error {rel:.4f} (<= {4 / np.sqrt(255):.4f}); K1 seeds "
+          f"only F = {nf} {k1:.4f} ms (plain {p1:.4f}, bound {b1:.4f} "
+          f"{by1}; {s1} ulp from plain), K2 [{nf}, n] k = 257 {k2:.4f} ms "
+          f"(plain {p2:.4f}, torch.topk {lib:.4f}, bound {b2:.4f} {by2}; "
+          f"= plain)", flush=True)
+    del keys, wn, act, sk
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    dist.destroy_process_group()           # the one-rank NCCL group
+    return ({"seeds": {"exchange_ms": k1, "exchange_plain_ms": p1,
+                       "exchange_bound_ms": b1,
+                       "exchange_shape": f"F = {nf}, n = {n}, seeds only"},
+             "blockselect": {"exchange_ms": k2, "exchange_plain_ms": p2,
+                             "exchange_bound_ms": b2,
+                             "exchange_library_ms": lib,
+                             "exchange_shape": f"[{nf}, {n}], k = 257"}},
+            dict(zip(K.COUNTED, run_counts)))
+
+
+def phase_train_multiprocess(torch):
+    """7b: two processes on the one card over gloo, mesh 2 x 1 x 1,
+    qwen2-1.5b at full widths cut to 2 layers (``_train_worker``)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="chip_smoke_7b_")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--train-worker",
+         str(r), port, out], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        _check(p.returncode == 0, f"train worker {r} failed:\n{log[-4000:]}")
+    res = [json.loads((Path(out) / f"rank{r}.json").read_text())
+           for r in range(2)]
+    _check(res[0]["losses"] == res[1]["losses"], "pod-mean losses differ")
+    for r in res:
+        _check(r["exchange_max_rel"] <= 1e-6, f"rank {r['rank']} exchange "
+               f"off the formula by {r['exchange_max_rel']}")
+        _check(r["sharded_member_taus_exact"] and r["sharded_probs_max_abs"]
+               <= 1e-5 and r["from_sharded_bitsame"],
+               f"rank {r['rank']} sharded builds {r}")
+    print(f"train 2 processes x gloo on one card, mesh 2x1x1, qwen2-1.5b "
+          f"widths at 2 layers: losses {res[0]['losses']}, step s "
+          f"{res[0]['step_s']}; exchange at {res[0]['leaf']} = (own + the "
+          f"other pod's HT estimate) / 2 within "
+          f"{max(r['exchange_max_rel'] for r in res):.3g}; "
+          f"sharded_multisketch over 2 x 524,288 rows = one-shot build "
+          f"(members, taus exact, probs within "
+          f"{max(r['sharded_probs_max_abs'] for r in res):.3g}); "
+          f"from_sharded merged slab bit-equal", flush=True)
+
+
+def _train_worker(rank: int, port: str, out: str) -> int:
+    """One rank of 7b (started by ``phase_train_multiprocess``)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    import repro_torch.core as C
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, Loader, SyntheticCorpus
+    from repro_torch.distopt import compression as CP
+    from repro_torch.launch import steps as St
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.query import SegmentQueryEngine
+    from repro_torch.launch.summary import sharded_multisketch
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
+    mesh = Mesh((2, 1, 1), ("pod", "data", "model"), device=dev)
+    step_fn, _ = St.make_train_step(
+        cfg, adamw.OptConfig(peak_lr=3e-3, warmup_steps=1, total_steps=3),
+        mesh, compress=dict(k=256, min_size=65536),
+        telemetry=train.TEL_SPEC)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8,
+                      n_docs=20_000)
+    loader = Loader(SyntheticCorpus(dcfg), dcfg, importance=True, device=dev)
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    state = {"params": params, "opt": adamw.init_opt_state(params),
+             "tel": C.multisketch_empty(train.TEL_SPEC, device=dev)}
+    losses, secs = [], []
+    for step in range(3):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, train.make_batch(cfg, loader.batch(step),
+                                                   dcfg, dev))
+        torch.cuda.synchronize()
+        secs.append(round(time.perf_counter() - t0, 4))
+        losses.append(float(m["loss"]))
+
+    # the exchange on this pod's gradient against the formula on the host
+    batch = train.make_batch(cfg, loader.batch(3), dcfg, dev)
+    grads = _leaf_grads(torch, Mod, TT, cfg, state["params"], batch)
+    leaf = "layers.attn.wq"
+    own = dict(TT.flatten(grads))[leaf].reshape(-1).cpu().numpy()
+    out_tree, wires = CP.exchange_grads(mesh, grads, 3, k=256,
+                                        min_size=65536, return_wires=True)
+    got = dict(TT.flatten(out_tree))[leaf].reshape(-1).cpu().numpy()
+    w = wires[leaf].cpu().numpy()                      # [2, 4, 768] int32
+    total = np.zeros(own.shape, np.float32)
+    est = []
+    for p in range(2):
+        idx = np.maximum(w[p, 0], 0)
+        val, prob = w[p, 1].view(np.float32), w[p, 2].view(np.float32)
+        c = np.where(w[p, 3] != 0, val / np.maximum(prob, np.float32(1e-30)),
+                     np.float32(0)).astype(np.float32)
+        np.add.at(total, idx, c)
+        e = np.zeros(own.shape, np.float32)
+        np.add.at(e, idx, c)
+        est.append(e)
+    pod = mesh.coords["pod"]
+    want = ((total - est[pod]) + own) / np.float32(2)
+    scale = np.maximum(np.abs(want), np.float32(1e-30))
+    ex_rel = float(np.max(np.abs(got - want) / scale))
+
+    # sharded builds over the two ranks' halves of 2^20 rows
+    rng = np.random.default_rng(71)
+    n = 1 << 20
+    keys = rng.permutation(n).astype(np.int32)
+    wts = rng.lognormal(0, 2, n).astype(np.float32)
+    dmesh = Mesh((2,), ("data",), device=dev)
+    spec = smoke_spec(C, "ppswor")
+    sk = sharded_multisketch(spec, dmesh, keys, wts)
+    one = C.multisketch_build(spec, keys, wts, device=dev)
+    a, b = member_triples(torch, sk), member_triples(torch, one)
+    exact = ([x[:2] for x in a] == [x[:2] for x in b]
+             and torch.equal(sk.taus, one.taus))
+    pmax = max((abs(x[2] - y[2]) for x, y in zip(a, b)), default=0.0)
+    eng = SegmentQueryEngine.from_sharded(spec, dmesh, keys, wts)
+    same = all(bool(torch.equal(x, y)) for x, y in zip(eng.merged, sk))
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "losses": losses, "step_s": secs, "leaf": leaf,
+        "exchange_max_rel": ex_rel, "sharded_member_taus_exact": exact,
+        "sharded_probs_max_abs": pmax, "from_sharded_bitsame": same}))
+    dist.destroy_process_group()
+    return 0
+
+
 def member_triples(torch, sk):
     """A sketch's member slots as a sorted list of (key, weight, prob)."""
     m = sk.member & sk.valid
@@ -1400,6 +1853,8 @@ def main() -> int:
     metric_counts = phase_metric(torch, C, K, dev)
     universal_counts = phase_universal(torch, C, K, dev)
     phase_scaleout(torch, C, K, pool_mod, query_mod, dev, card)
+    train_stats, train_counts = phase_train(torch, C, K, dev)
+    phase_train_multiprocess(torch)
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),
@@ -1414,7 +1869,9 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{cu}",
                      "replaces": f"src/repro/kernels/{tpu}",
-                     "launches": launches, **kstats[name]})
+                     "launches": launches, **kstats[name],
+                     **train_stats.get(name, {}),
+                     "train_launches": train_counts[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1423,4 +1880,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-worker"]:
+        sys.exit(_train_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -68,7 +68,10 @@ def _unflatten(template, arrays: dict, prefix: str = ""):
                               for i, v in enumerate(template))
     dev = (template.device if isinstance(template, torch.Tensor)
            else torch.device("cpu"))
-    return torch.from_numpy(np.ascontiguousarray(arrays[prefix])).to(dev)
+    a = arrays[prefix]
+    if not a.flags.c_contiguous:    # (np.ascontiguousarray turns 0-d 1-d)
+        a = np.ascontiguousarray(a)
+    return torch.from_numpy(a).to(dev)
 
 
 def _to_host(leaf) -> np.ndarray:

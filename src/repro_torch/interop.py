@@ -18,6 +18,12 @@ gives the port's ``ClusterReplica`` (promote it with
 port's back as a dict of numpy arrays and plain values. All are exact
 copies. This module imports nothing of the JAX package: the caller
 converts the reference's arrays to numpy first.
+
+Model parameters travel as the reference's nested dict of arrays (the
+``params`` tree of ``repro.models.model.init_model``):
+``model_params_from_arrays`` gives the port's tree of tensors on a device,
+``model_params_to_arrays`` the nested dict of numpy arrays back, both
+exact copies.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import tree as T
 from repro_torch.core.merge import Sketch
 from repro_torch.core.multi_sketch import MultiSketch
 from repro_torch.launch.cluster import ClusterReplica
@@ -105,3 +112,33 @@ def cluster_replica_to_arrays(replica: ClusterReplica) -> dict:
             "eps": arr(replica.eps), "norm": arr(replica.norm),
             "next_key": int(replica.next_key), "epoch": int(replica.epoch),
             "config": dict(replica.config)}
+
+
+def model_params_from_arrays(cfg, tree, device=None) -> dict:
+    """The reference's nested dict of parameter arrays -> the port's tree
+    of tensors on a device, checked leaf by leaf against the shapes of
+    ``init_model(cfg)``."""
+    from repro_torch.models.model import abstract_params
+    dev = resolve_device(device)
+    want = dict(T.flatten(abstract_params(cfg)[0]))
+    got = dict(T.flatten(tree))
+    if set(got) != set(want):
+        raise ValueError(f"parameter paths differ: extra "
+                         f"{sorted(set(got) - set(want))}, missing "
+                         f"{sorted(set(want) - set(got))}")
+    out = []
+    for path, leaf in got.items():
+        a = np.array(leaf, dtype=np.float32)
+        if a.shape != tuple(want[path].shape):
+            raise ValueError(f"{path}: shape {a.shape}, want "
+                             f"{tuple(want[path].shape)}")
+        out.append((path, torch.from_numpy(a).to(dev)))
+    return T.unflatten(out)
+
+
+def model_params_to_arrays(params) -> dict:
+    """The port's parameter tree -> the nested dict of numpy arrays the
+    reference's functions take."""
+    return T.unflatten(
+        (path, leaf.detach().cpu().numpy().copy())
+        for path, leaf in T.flatten(params))

@@ -1,7 +1,6 @@
 """Device-resident segment-query engine (the serving tier).
 
-Port of ``repro/launch/query.py`` ``SegmentQueryEngine`` (all but
-``from_sharded``, which needs the sharded build):
+Port of ``repro/launch/query.py`` ``SegmentQueryEngine``:
 
   * per-shard ``MultiSketch`` slabs stay resident on the device; absorbing
     a chunk folds it into its shard's slab;
@@ -224,6 +223,24 @@ class SegmentQueryEngine:
         self._shard_live = [True] * m
         self._drop_merged_cache()
         self._update_gauges()
+
+    @classmethod
+    def from_sharded(cls, spec: MultiSketchSpec, mesh, keys, weights,
+                     active=None, axis: str = "data", **kw
+                     ) -> "SegmentQueryEngine":
+        """Build per-rank slabs over data split along a mesh axis (local
+        selection only, no merge: ``launch.summary.
+        sharded_multisketch_shards``) and hold them resident, one shard
+        per rank. ``device`` defaults to the mesh's."""
+        from repro_torch.launch.summary import sharded_multisketch_shards
+        stacked = sharded_multisketch_shards(spec, mesh, keys, weights,
+                                             active, axis=axis,
+                                             use_kernels=kw.get(
+                                                 "use_kernels"))
+        kw.setdefault("device", mesh.device)
+        eng = cls(spec, shards=stacked.keys.shape[0], **kw)
+        eng.load_stacked(stacked)
+        return eng
 
     def _drop_merged_cache(self):
         self._merged = None

@@ -1,0 +1,89 @@
+"""AdamW with decoupled weight decay, global-norm clipping and a
+warmup-cosine schedule, on nested-dict trees of tensors.
+
+Port of ``repro/optim/adamw.py``. Every update allocates fresh tensors
+(the caller's state stays valid). Weight decay applies to leaves with
+``ndim >= 2``; under the stacked layer layout that includes the ``[L, d]``
+norm scales and biases, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch import tree as T
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    peak_lr: float = 3e-4
+    min_lr_frac: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``step`` (an integer tensor), float32."""
+    step = step.to(torch.float32)
+    warm = cfg.peak_lr * step / max(cfg.warmup_steps, 1)
+    t = (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps,
+                                        1)
+    t = torch.clamp(t, 0.0, 1.0)
+    cos = cfg.peak_lr * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5
+                         * (1 + torch.cos(math.pi * t)))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params) -> dict[str, Any]:
+    def zeros():
+        return T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                device=p.device), params)
+    dev = T.leaves(params)[0].device
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    total = None
+    for x in T.leaves(tree):
+        s = torch.sum(torch.square(x.to(torch.float32)))
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def apply_updates(params, grads, state, cfg: OptConfig):
+    """Returns (new_params, new_state, metrics)."""
+    step = state["step"] + 1
+    gn = global_norm(grads)
+    scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gn, 1e-9), 1.0)
+    lr = schedule(cfg, step)
+    stepf = step.to(torch.float32)
+    c1 = 1.0 - torch.pow(cfg.b1, stepf)
+    c2 = 1.0 - torch.pow(cfg.b2, stepf)
+
+    def upd(p, g, m, v):
+        g = g.to(torch.float32) * scale
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+        step_ = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        decay = cfg.weight_decay * p.to(torch.float32) if p.ndim >= 2 else 0.0
+        newp = p.to(torch.float32) - lr * (step_ + decay)
+        return newp.to(p.dtype), m, v
+
+    paths = [path for path, _ in T.flatten(params)]
+    out = [upd(p, g, m, v) for p, g, m, v in zip(
+        T.leaves(params), T.leaves(grads), T.leaves(state["m"]),
+        T.leaves(state["v"]))]
+    new_p = T.unflatten(zip(paths, (o[0] for o in out)))
+    new_m = T.unflatten(zip(paths, (o[1] for o in out)))
+    new_v = T.unflatten(zip(paths, (o[2] for o in out)))
+    return new_p, {"m": new_m, "v": new_v, "step": step}, {
+        "grad_norm": gn, "lr": lr}

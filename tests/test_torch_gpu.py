@@ -591,3 +591,65 @@ def test_universal_monotone_and_merge_fold_on_card_equal_cpu(cuda):
     for name in ("keys", "weights", "probs", "member", "valid"):
         assert torch.equal(getattr(folds["cuda"], name).cpu(),
                            getattr(folds["cpu"], name)), name
+
+
+# ---------------------------------------------------------- training path
+def test_gradient_exchange_kernel_matches_plain(cuda):
+    """``_sample_leaf`` through K1 (seeds only) + K2 against their plain
+    versions on a 3,000,000-row leaf with ties and zeros: keys, valid,
+    member and weights exact, seeds and taus within 2 ulp, probs within 4
+    ulp; and at one pod the exchange returns its input."""
+    from repro_torch.distopt import compression as CP
+    from repro_torch.launch.mesh import Mesh
+    rng = np.random.default_rng(7)
+    g = rng.standard_normal(3_000_000).astype(np.float32)
+    ties = rng.random(g.size) < 0.3
+    g[ties] = np.round(g[ties], 1)
+    g[rng.random(g.size) < 0.1] = 0.0
+    tg = torch.from_numpy(g).to(cuda)
+    before = K.launch_counts()
+    a = CP._sample_leaf(tg, 256, 4_000_000_123, 0.01)
+    after = K.launch_counts()
+    assert after["seeds"] - before["seeds"] == 1
+    assert after["blockselect"] - before["blockselect"] == 1
+    b = CP._sample_leaf(tg, 256, 4_000_000_123, 0.01, use_kernels=False)
+    for name in ("keys", "valid", "member", "aux", "weights"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert_ulp(a.seeds, b.seeds, 2, "seeds")
+    assert_ulp(a.taus, b.taus, 2, "taus")
+    assert_ulp(a.probs, b.probs, 4, "probs")
+    assert 0 < int(a.valid.sum()) <= 768
+    mesh = Mesh((1, 1, 1), ("pod", "data", "model"), device=cuda)
+    out = CP.exchange_grads(mesh, {"g": tg.reshape(3000, 1000)}, 2, k=256)
+    assert torch.equal(out["g"].reshape(-1), tg)
+
+
+def test_full_width_train_step(cuda):
+    """One train step of qwen2-1.5b at full width (28 layers, d_model
+    1536, vocab 151,936) with the sampled exchange at one pod and the
+    telemetry fold: a finite loss near ln(vocab) x the init scale, the
+    step counted, launches (9, 10, 1, 0, 0, 0)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import multisketch_empty
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TEL_SPEC
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import adamw
+    cfg = get_config("qwen2-1.5b")
+    mesh = Mesh((1, 1, 1), ("pod", "data", "model"), device=cuda)
+    step, _ = make_train_step(cfg, adamw.OptConfig(), mesh,
+                              compress=dict(k=256, min_size=65536),
+                              telemetry=TEL_SPEC)
+    params, _ = init_model(cfg, seed=0, device=cuda)
+    state = {"params": params, "opt": adamw.init_opt_state(params),
+             "tel": multisketch_empty(TEL_SPEC, device=cuda)}
+    del params
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (8, 128)).astype(np.int32)).to(cuda)
+    K.reset_launch_counts()
+    state, m = step(state, {"tokens": toks})
+    assert tuple(K.launch_counts().values()) == (9, 10, 1, 0, 0, 0)
+    assert np.isfinite(float(m["loss"])) and float(m["loss"]) > 0
+    assert int(state["opt"]["step"]) == 1
+    assert int(state["tel"].valid.sum()) == 8

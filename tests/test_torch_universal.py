@@ -62,7 +62,25 @@ _ENTRY_POINTS = {
         (*_HOST[:2], _HOST[1], _HOST[2], _HOST[2], 2, 0)),
     "capping_kernel": lambda: K.ops.universal_capping_kernel(*_HOST, 2),
     "multi_objective_kernel": lambda: K.ops.multi_objective_bottomk_kernel(
-        *_HOST, ((0, 0.0),), 2)}
+        *_HOST, ((0, 0.0),), 2),
+    "init_model": lambda: _train_mods()[0].init_model(
+        _train_mods()[1].get_smoke_config("qwen2-1.5b")),
+    "make_host_mesh": lambda: _train_mods()[2].make_host_mesh(),
+    "importance_loader": lambda: _train_mods()[3].Loader(
+        _train_mods()[3].SyntheticCorpus(_train_mods()[3].DataConfig(
+            vocab_size=8, seq_len=4, global_batch=2, n_docs=64)),
+        _train_mods()[3].DataConfig(vocab_size=8, seq_len=4, global_batch=2,
+                                    n_docs=64), importance=True),
+    "train_main": lambda: _train_mods()[4].main(["--smoke", "--steps", "1"])}
+
+
+def _train_mods():
+    """The training path's modules (imported when an entry point runs)."""
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh, train
+    from repro_torch.models import model
+    return model, registry, mesh, pipeline, train
 
 
 @pytest.mark.parametrize("name", sorted(_ENTRY_POINTS))
