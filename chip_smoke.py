@@ -95,7 +95,43 @@ Phases (any failure exits non-zero; nothing is caught):
    gathered slabs on the host, ``sharded_multisketch`` over the two
    ranks' halves of 2^20 rows equal to the one-shot build (members and
    taus exact, probs within 1e-5) and ``from_sharded``'s merged slab
-   bit-equal to it.
+   bit-equal to it;
+8. model serving at full width, random weights from seed 0 (8a-8c:
+   qwen2-1.5b; 8d: granite-moe-1b-a400m, 24 layers, d_model 1024, 32
+   experts top-8, 1,334,756,352 parameters; 8e: qwen2-moe-a2.7b, 60
+   experts top-4 + 4 shared, QKV bias, 14,315,735,040): (a)
+   ``launch/serve.main`` at batch 8 x prompt 1024, gen 64: prefill,
+   grow_cache, greedy decode, prefill ms and decode ms/token (p50 of the
+   per-step CUDA-event times), peak memory; prefill and decode launch none
+   of the port's kernels, the request telemetry's absorb moves K1-K3, its
+   query (0, 0, 0, 1, 0, 0), the request-shape search K5, and the pool's
+   estimates are exact (every request is in the sample); every kernel
+   launch of the run is recorded with its inputs and outputs and held
+   against its plain version (phase 1's tolerances), and plain-path twins
+   on the card give the pool's answers (both predicates) within rtol
+   1e-5, the request-shape slab bit for bit and the service costs of the
+   search's centers and of 15 seeded center sets within rtol 1e-5; (b) fp32
+   activations, batch 2 x 64: serve_step's logits at every position and
+   prefill's last-position logits within 5e-3 x max(scale, 1) of
+   forward_logits; (c) 16 decode steps (CUDA events) and one profiled
+   step (wall, device, idle share) at 8a's cache, then the same at
+   decode_32k's cache length 32,768 with the batch cut from 128 to 8
+   (7.52 GB of KV from a seeded generator) beside its bound (bf16 weights
+   and KV read once) and the traffic of the current design (per-call
+   weight casts, the fp32 tied head, the KV read and k's fp32 up-cast);
+   (d) granite-moe through serve.main at 8a's traffic, the fp32
+   consistency within 2e-2 x max(scale, 1) at a capacity_factor of
+   max(8, E / top_k) (capacity >= the sequence: no full-forward drop,
+   as the reference test intends; 8 for granite, 15 for qwen2-moe), decode
+   steps timed and profiled as in (c) at 8a's cache, ``train.main`` for 3
+   steps (batch 8 x seq 128,
+   ``--compress --importance-sampling``, mesh 1x1x1, launches (10, 11, 1,
+   0, 0, 0) per step: 9 sampled leaves and the telemetry fold, finite
+   losses) and ``_sample_leaf`` on the real gradient of ``layers.moe.wi``
+   (402,653,184 rows; the checks and timings of 7a's wg leaf); (e)
+   qwen2-moe-a2.7b through serve.main at batch 4 x prompt 512, gen 16
+   (the checks of (a)), the fp32 consistency of (d), then decode steps
+   timed and profiled at batch 4, cache 528.
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
@@ -103,11 +139,16 @@ from phase 1; K2's row is its global route, with both routes named under
 ``routes``; K6's row gives its time at n = 2^20 and its plain version's
 at ``plain_n`` = 65,536, beside the kernel's own time there; every row's
 ``train_launches`` are phase 7a's first run, K1's and K2's ``exchange_*``
-keys their times at the exchange's largest leaf) and, last,
+keys their times at the exchange's largest leaf; every row's
+``moe_train_launches`` are 8d's run and ``serve_launches`` 8a's
+serve.main run, K1's and K2's ``moe_exchange_*`` keys their times at
+``layers.moe.wi``) and, last,
 ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import subprocess
 import sys
@@ -148,6 +189,16 @@ TRAIN_STEPS = 6
 TRAIN_STEP_LAUNCHES = (9, 10, 1, 0, 0, 0)  # 8 sampled leaves + 1 fold
 RESUME_RTOL = 1e-5              # resumed losses vs the uninterrupted run
 WORKER_TIMEOUT_S = 400
+SERVE_ARCH = "qwen2-1.5b"       # phase 8: the full-width serving path
+SERVE_TRAFFIC = ["--batch", "8", "--prompt-len", "1024", "--gen", "64"]
+CONSISTENCY_S = 64              # 8b/8d: fp32 decode vs forward, batch 2
+LONG_T = 32_768                 # 8c: decode_32k's cache length, ...
+LONG_BATCH = 8                  # ... its batch cut from 128 (120 GB of KV)
+LONG_STEPS = 16
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_STEP_LAUNCHES = (10, 11, 1, 0, 0, 0)   # 9 sampled leaves + 1 fold
+BIG_MOE_ARCH = "qwen2-moe-a2.7b"
+BIG_MOE_TRAFFIC = ["--batch", "4", "--prompt-len", "512", "--gen", "16"]
 
 
 def _fail(msg: str):
@@ -1433,6 +1484,72 @@ def _leaf_grads(torch, Mod, TT, cfg, params, batch):
                                                                   grads))
 
 
+def big_leaf_kernels(torch, dev, g, seed: int, what: str):
+    """``_sample_leaf`` through K1 + K2 on one large gradient leaf ``g``
+    (flat): at most 768 valid slots, finite positive taus, the HT |g| mass
+    within 4 / sqrt(255); then K1 (seeds only, F = 3; within 2 ulp of
+    plain) and K2 ([3, n], k = 257; equal to plain) timed against their
+    plain versions and ``torch.topk``. Returns their rows' stats."""
+    from repro_torch.distopt import compression as CP
+    from repro_torch.kernels import blockselect as kbs
+    from repro_torch.kernels import seeds as ks
+    sk = CP._sample_leaf(g, 256, seed, 0.01)
+    nv = int(sk.valid.sum())
+    _check(0 < nv <= 768, f"{what}: valid slots {nv}")
+    _check(bool(torch.isfinite(sk.taus).all() and (sk.taus > 0).all()),
+           f"{what}: taus {sk.taus.tolist()}")
+    m = sk.valid
+    est = float((sk.weights[m].abs().double() / sk.probs[m].double()).sum())
+    exact = float(g.abs().double().sum())
+    rel = abs(est / exact - 1)
+    _check(rel <= 4 / np.sqrt(255), f"{what}: HT |g| mass off by {rel:.3f}")
+    n = g.numel()
+    _check(3 * n < 2 ** 31, f"{what}: F n = {3 * n} overflows int")
+    keys = torch.arange(n, dtype=torch.int32, device=dev)
+    wn = g.abs()
+    wn /= torch.clamp_min(wn.max(), 1e-30)
+    act = wn > 0
+    enc = CP._leaf_spec(256, 0.01, "ppswor").kernel_objectives()
+    k1 = cuda_ms(torch, lambda: ks.fused_seeds(keys, wn, act, enc, "ppswor",
+                                               seed), reps=7, inner=1)
+    seeds = ks.fused_seeds(keys, wn, act, enc, "ppswor", seed)
+    s1 = ulps(seeds, ks.fused_seeds_fvals_plain(
+        keys, wn, act, enc, "ppswor", seed, want_fvals=False)[0])
+    _check(s1 <= 2, f"{what}: K1 at [3, {n}] {s1} ulp from plain")
+    k2 = cuda_ms(torch, lambda: kbs.batched_bottomk_select(seeds, 257),
+                 reps=7, inner=1)
+    kv, _, kt = kbs.batched_bottomk_select(seeds, 257)
+    lib = cuda_ms(torch, lambda: torch.topk(seeds, 257, dim=1,
+                                            largest=False), reps=3, inner=1)
+    p2 = cuda_ms(torch, lambda: kbs.batched_bottomk_select_plain(seeds, 257),
+                 reps=3, inner=1)
+    pv, _, pt = kbs.batched_bottomk_select_plain(seeds, 257)
+    _check(torch.equal(kv, pv) and torch.equal(kt, pt),
+           f"{what}: K2 at [3, {n}] != plain")
+    del seeds, kv, pv
+    torch.cuda.empty_cache()
+    p1 = cuda_ms(torch, lambda: ks.fused_seeds_fvals_plain(
+        keys, wn, act, enc, "ppswor", seed, want_fvals=False), reps=3,
+        inner=1)
+    nf = len(enc)
+    b1, by1 = bound(n * (4 + 4 + 1 + 4 * nf), 0)
+    b2, by2 = bound(4 * nf * n, 0)
+    print(f"{what} ({n:,} rows): {nv} valid slots, taus "
+          f"{[round(x, 6) for x in sk.taus.tolist()]}, HT |g| mass "
+          f"relative error {rel:.4f} (<= {4 / np.sqrt(255):.4f}); K1 seeds "
+          f"only F = {nf} {k1:.4f} ms (plain {p1:.4f}, bound {b1:.4f} "
+          f"{by1}; {s1} ulp from plain), K2 [{nf}, n] k = 257 {k2:.4f} ms "
+          f"(plain {p2:.4f}, torch.topk {lib:.4f}, bound {b2:.4f} {by2}; "
+          f"= plain)", flush=True)
+    del keys, wn, act, sk
+    torch.cuda.empty_cache()
+    return {"seeds": {"ms": k1, "plain_ms": p1, "bound_ms": b1,
+                      "shape": f"F = {nf}, n = {n}, seeds only"},
+            "blockselect": {"ms": k2, "plain_ms": p2, "bound_ms": b2,
+                            "library_ms": lib,
+                            "shape": f"[{nf}, {n}], k = 257"}}
+
+
 def phase_train(torch, C, K, dev):
     """7a: ``train.main`` for qwen2-1.5b at full width, 6 steps with the
     sampled exchange at one pod, importance sampling, telemetry and a
@@ -1449,8 +1566,6 @@ def phase_train(torch, C, K, dev):
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, Loader, SyntheticCorpus
     from repro_torch.distopt import compression as CP
-    from repro_torch.kernels import blockselect as kbs
-    from repro_torch.kernels import seeds as ks
     from repro_torch.launch import steps as St
     from repro_torch.launch import train
     from repro_torch.launch.mesh import Mesh
@@ -1608,66 +1723,14 @@ def phase_train(torch, C, K, dev):
     wg = inp["layers.mlp.wg"].reshape(-1)
     del inp, grads, a, b
     torch.cuda.empty_cache()
-    sk = CP._sample_leaf(wg, 256, seed, 0.01)
-    nv = int(sk.valid.sum())
-    _check(0 < nv <= 768, f"wg valid slots {nv}")
-    _check(bool(torch.isfinite(sk.taus).all() and (sk.taus > 0).all()),
-           f"wg taus {sk.taus.tolist()}")
-    m = sk.valid
-    est = float((sk.weights[m].abs().double() / sk.probs[m].double()).sum())
-    exact = float(wg.abs().double().sum())
-    rel = abs(est / exact - 1)
-    _check(rel <= 4 / np.sqrt(255), f"wg HT |g| mass off by {rel:.3f}")
-    n = wg.numel()
-    keys = torch.arange(n, dtype=torch.int32, device=dev)
-    wn = wg.abs()
-    wn /= torch.clamp_min(wn.max(), 1e-30)
-    act = wn > 0
+    x = big_leaf_kernels(torch, dev, wg, seed, "train exchange at "
+                         "layers.mlp.wg")
     del wg
-    enc = CP._leaf_spec(256, 0.01, "ppswor").kernel_objectives()
-    k1 = cuda_ms(torch, lambda: ks.fused_seeds(keys, wn, act, enc, "ppswor",
-                                               seed), reps=7, inner=1)
-    seeds = ks.fused_seeds(keys, wn, act, enc, "ppswor", seed)
-    s1 = ulps(seeds, ks.fused_seeds_fvals_plain(
-        keys, wn, act, enc, "ppswor", seed, want_fvals=False)[0])
-    _check(s1 <= 2, f"K1 at [3, 385M] {s1} ulp from plain")
-    k2 = cuda_ms(torch, lambda: kbs.batched_bottomk_select(seeds, 257),
-                 reps=7, inner=1)
-    kv, _, kt = kbs.batched_bottomk_select(seeds, 257)
-    lib = cuda_ms(torch, lambda: torch.topk(seeds, 257, dim=1,
-                                            largest=False), reps=3, inner=1)
-    p2 = cuda_ms(torch, lambda: kbs.batched_bottomk_select_plain(seeds, 257),
-                 reps=3, inner=1)
-    pv, _, pt = kbs.batched_bottomk_select_plain(seeds, 257)
-    _check(torch.equal(kv, pv) and torch.equal(kt, pt),
-           "K2 at [3, 385M] != plain")
-    del seeds, kv, pv
-    torch.cuda.empty_cache()
-    p1 = cuda_ms(torch, lambda: ks.fused_seeds_fvals_plain(
-        keys, wn, act, enc, "ppswor", seed, want_fvals=False), reps=3,
-        inner=1)
-    nf = len(enc)
-    b1, by1 = bound(n * (4 + 4 + 1 + 4 * nf), 0)
-    b2, by2 = bound(4 * nf * n, 0)
-    print(f"train exchange at layers.mlp.wg ({n:,} rows): {nv} valid slots, "
-          f"taus {[round(x, 6) for x in sk.taus.tolist()]}, HT |g| mass "
-          f"relative error {rel:.4f} (<= {4 / np.sqrt(255):.4f}); K1 seeds "
-          f"only F = {nf} {k1:.4f} ms (plain {p1:.4f}, bound {b1:.4f} "
-          f"{by1}; {s1} ulp from plain), K2 [{nf}, n] k = 257 {k2:.4f} ms "
-          f"(plain {p2:.4f}, torch.topk {lib:.4f}, bound {b2:.4f} {by2}; "
-          f"= plain)", flush=True)
-    del keys, wn, act, sk
     torch.cuda.empty_cache()
     import torch.distributed as dist
     dist.destroy_process_group()           # the one-rank NCCL group
-    return ({"seeds": {"exchange_ms": k1, "exchange_plain_ms": p1,
-                       "exchange_bound_ms": b1,
-                       "exchange_shape": f"F = {nf}, n = {n}, seeds only"},
-             "blockselect": {"exchange_ms": k2, "exchange_plain_ms": p2,
-                             "exchange_bound_ms": b2,
-                             "exchange_library_ms": lib,
-                             "exchange_shape": f"[{nf}, {n}], k = 257"}},
-            dict(zip(K.COUNTED, run_counts)))
+    return ({name: {f"exchange_{key}": v for key, v in row.items()}
+             for name, row in x.items()}, dict(zip(K.COUNTED, run_counts)))
 
 
 def phase_train_multiprocess(torch):
@@ -1805,6 +1868,445 @@ def _train_worker(rank: int, port: str, out: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 8: model serving (prefill, KV-cache decode, launch/serve.py) and the
+# MoE family, at full width
+# ---------------------------------------------------------------------------
+
+# the kernel wrappers the serving path calls, as (module, the attribute its
+# callers look up at call time, counter): compact_take holds K2 by its own
+# module's name
+PATH_WRAPPERS = (("seeds", "fused_seeds_fvals", "seeds"),
+                 ("blockselect", "batched_bottomk_select", "blockselect"),
+                 ("compact", "batched_bottomk_select", "blockselect"),
+                 ("compact", "retention_priority", "compact"),
+                 ("segquery", "segment_query_slab", "segquery"),
+                 ("servicecost", "service_cost_slab", "servicecost"))
+
+
+def snapshot(torch, x):
+    """A copy of x's tensors, in the same (named) tuples, lists and dicts."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(snapshot(torch, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(snapshot(torch, v) for v in x)
+    if isinstance(x, dict):
+        return {k: snapshot(torch, v) for k, v in x.items()}
+    return x
+
+
+class _Recorded:
+    """A wrapper that records its calls. Its ``launches`` is the wrapped
+    function's, which the kernel modules count through the module name
+    this object takes."""
+
+    def __init__(self, torch, fn, counter: str, calls: list):
+        self._torch, self._fn, self._counter, self._calls = (torch, fn,
+                                                             counter, calls)
+
+    def __call__(self, *a, **kw):
+        inputs = snapshot(self._torch, (a, kw))
+        out = self._fn(*a, **kw)
+        self._calls.append((self._counter, inputs,
+                            snapshot(self._torch, out)))
+        return out
+
+    @property
+    def launches(self):
+        return self._fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self._fn.launches = value
+
+
+@contextlib.contextmanager
+def recorded_launches(torch):
+    """Every call of a ``PATH_WRAPPERS`` wrapper inside the block, as
+    (counter, inputs, outputs), copies taken at the call."""
+    calls, saved = [], []
+    for mod_name, attr, counter in PATH_WRAPPERS:
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, _Recorded(torch, fn, counter, calls))
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def check_path_launches(torch, calls, what: str):
+    """Each recorded launch's outputs against its kernel's plain version on
+    the recorded inputs, at phase 1's tolerances (K1 within 2 ulp, the
+    sum/count/thresh f-values exact; K2 and K3 bit for bit; K4 within rtol
+    1e-5; K5 by ``k5_check``). Returns {counter: max abs error}."""
+    from repro_torch.core import costs as CO
+    from repro_torch.kernels.blockselect import batched_bottomk_select_plain
+    from repro_torch.kernels.compact import retention_priority_plain
+    from repro_torch.kernels.seeds import fused_seeds_fvals_plain
+    from repro_torch.kernels.segquery import segment_query_slab_plain
+    from repro_torch.kernels.servicecost import service_cost_slab_plain
+    errs = {}
+    for i, (name, (a, kw), got) in enumerate(calls):
+        tag = f"{what}: {name} launch {i}"
+        if name == "seeds":
+            (sk, fk), (sp, fp) = got, fused_seeds_fvals_plain(*a, **kw)
+            exact = [j for j, (kind, _) in enumerate(a[3]) if kind != 4]
+            _check(ulps(sk, sp) <= 2 and ulps(fk, fp) <= 2
+                   and torch.equal(fk[exact], fp[exact]),
+                   f"{tag}: seeds/f-values differ from the plain version")
+            err = max(max_abs(sk, sp), max_abs(fk, fp))
+        elif name == "blockselect":
+            (vk, ik, tk), (vp, ip, tp) = got, batched_bottomk_select_plain(
+                *a, **kw)
+            _check(torch.equal(vk.view(torch.int32), vp.view(torch.int32))
+                   and torch.equal(ik, ip) and torch.equal(tk, tp),
+                   f"{tag}: vals/idx/tau differ from the plain version")
+            err = max_abs(vk, vp)
+        elif name == "compact":
+            want = retention_priority_plain(*a, **kw)
+            _check(torch.equal(got, want), f"{tag}: priorities differ")
+            err = max_abs(got, want)
+        elif name == "segquery":
+            want = segment_query_slab_plain(*a, **kw)
+            _check(torch.allclose(got, want, rtol=1e-5, atol=0.0),
+                   f"{tag}: beyond rtol 1e-5 of the plain version")
+            err = max_abs(got, want)
+        else:
+            want = service_cost_slab_plain(*a, **kw)
+            err = k5_check(torch, CO, got, want, a[:3], a[3], tag)
+        errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def _serve_run(torch, K, dev, arch: str, argv):
+    """serve.main for ``arch`` with the launch counts reset just before it:
+    (result, per-block launch deltas, the run's launches, peak GiB, wall
+    s). Prefill and decode launch none of the port's kernels; the request
+    telemetry moves K1-K3 at absorb, K4 at query and K5 in the search.
+    Every launch of the run is held against its plain version on its own
+    inputs, and the same requests go through the plain versions on the
+    card: the pool's answers (both predicates) within rtol 1e-5, the
+    request-shape slab bit for bit and the service costs of the search's
+    centers and of 15 seeded center sets within rtol 1e-5."""
+    from repro_torch import core as C
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.query import SegmentQueryEngine
+    deltas, info, last = {}, {}, {}
+
+    def cb(event, **kw):
+        deltas[event] = counts_delta(K, last["c"])
+        info[event] = kw
+        last["c"] = K.launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    last["c"] = K.launch_counts()
+    t0 = time.perf_counter()
+    with recorded_launches(torch) as calls:
+        out = serve.main(["--arch", arch] + argv, callback=cb)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    run = tuple(K.launch_counts().values())
+    args = dict(zip(argv[::2], argv[1::2]))
+    B, P, G = (int(args[k]) for k in ("--batch", "--prompt-len", "--gen"))
+    cfg = get_config(arch)
+    toks = out["tokens"]
+    _check(toks.shape == (B, G) and toks.min() >= 0
+           and toks.max() < cfg.vocab_size, f"{arch} served tokens")
+    none = (0,) * len(K.COUNTED)
+    _check(deltas["prefilled"] == none and deltas["decoded"] == none,
+           f"{arch}: the model path launched {deltas}")
+    a, q, c = deltas["absorbed"], deltas["queried"], deltas["clustered"]
+    _check(min(a[:3]) > 0 and a[3:] == (0, 0, 0), f"{arch} absorb {a}")
+    _check(q == (0, 0, 0, 1, 0, 0), f"{arch} query {q}")
+    _check(c[4] > 0, f"{arch} request-shape search {c}")
+    st = out["stats"]
+    _check(st[0, 0] == B * (P + G) and st[1, 0] == B and st[2, 0] == B,
+           f"{arch} request telemetry {st.tolist()}")
+    _check(len(out["decode_ms"]) == G - 1 and np.isfinite(out["est_cost"]),
+           f"{arch} decode steps / cluster cost")
+
+    # every launch of the run, against its plain version
+    recorded = tuple(sum(1 for name, _, _ in calls if name == k)
+                     for k in K.COUNTED)
+    _check(recorded == run, f"{arch}: recorded launches {recorded}, "
+           f"counted {run}")
+    errs = check_path_launches(torch, calls, f"{arch} serve")
+
+    # the same requests through the plain versions on the card
+    twin = SegmentQueryEngine(serve.REQUEST_SPEC, use_kernels=False,
+                              device=dev)
+    twin.absorb(*C.quarantine_chunk(np.arange(B), np.full(B, float(P + G)))
+                [:3])
+    want = twin.query_many(serve.REQUEST_OBJECTIVES, serve.REQUEST_PREDICATES)
+    _check(np.allclose(st, want, rtol=1e-5, atol=0.0),
+           f"{arch}: pool answers {st.tolist()} vs plain {want.tolist()}")
+    ceng, res = info["clustered"]["engine"], info["clustered"]["result"]
+    feats = serve.request_features(toks, P + G)
+    ctwin = serve.request_cluster_engine(B, int(args.get("--seed", 0)), dev,
+                                         use_kernels=False)
+    ctwin.absorb(feats)
+    for name, x, y in zip(ceng._sketch._fields, ceng._sketch, ctwin._sketch):
+        _check(torch.equal(x, y), f"{arch}: request-shape slab {name} differs")
+    _check(torch.equal(ceng._coords, ctwin._coords),
+           f"{arch}: request-shape coords differ")
+    rng = np.random.default_rng(18)
+    sets = (feats[rng.integers(0, B, (15, 2))]
+            + rng.normal(0, 4.0, (15, 2, 2))).astype(np.float32)
+    table = C.cost_table(np.concatenate([res.centers[None], sets]), 2.0)
+    ka, kb = ceng.service_costs(table), ctwin.service_costs(table)
+    _check(np.allclose(ka, kb, rtol=1e-5, atol=0.0) and kb.max() > 0,
+           f"{arch}: service costs {ka.tolist()} vs plain {kb.tolist()}")
+    print(f"serve {arch}: {sum(run)} kernel launches of the run held against "
+          f"their plain versions on their own inputs (max abs err: "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}); plain "
+          f"twins on the card: answers {want[:, 1].tolist()} (hash 0.5) "
+          f"within rtol 1e-5, slab bit-equal, 16 service costs within rtol "
+          f"1e-5 (max {float(kb.max()):.4g})", flush=True)
+    return out, deltas, run, peak, wall
+
+
+def no_drop(cfg):
+    """A MoE config whose full forward can drop no choice (capacity >= the
+    sequence: capacity_factor >= E / top_k, and at least the reference
+    test's 8). A one-token decode step never drops, and a full-forward
+    drop is intended behaviour, so the consistency check avoids it as the
+    reference's test_smoke_decode_consistency does."""
+    import dataclasses
+    return dataclasses.replace(cfg, capacity_factor=max(
+        8.0, cfg.num_experts / cfg.moe_top_k))
+
+
+def _decode_consistency(torch, Mod, cfg, dev, tol: float, params=None):
+    """fp32 activations, batch 2 x CONSISTENCY_S: serve_step's logits at
+    every position and prefill's last-position logits against
+    forward_logits, each within tol x max(scale, 1). ``params``: the fp32
+    parameters from seed 0 when the caller holds them. Returns (max step
+    error, prefill error, scale)."""
+    if cfg.family == "moe":
+        from repro_torch.models.moe import moe_capacity
+        _check(moe_capacity(CONSISTENCY_S, cfg) >= CONSISTENCY_S,
+               f"{cfg.name}: the full forward could drop choices")
+    old = Mod.ACT_DTYPE
+    Mod.ACT_DTYPE = torch.float32
+    try:
+        if params is None:
+            params, _ = Mod.init_model(cfg, seed=0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(9)
+        S, V = CONSISTENCY_S, cfg.vocab_size
+        toks = torch.randint(0, V, (2, S), generator=g, device=dev,
+                             dtype=torch.int32)
+        with torch.no_grad():
+            full = Mod.forward_logits(params, cfg, {"tokens": toks})
+        cache = Mod.make_cache(cfg, 2, S, dtype=torch.float32, device=dev)
+        err = 0.0
+        for t in range(S):
+            logits, cache = Mod.serve_step(params, cfg, toks[:, t], cache, t)
+            err = max(err, float((logits[:, :V] - full[:, t, :V]).abs()
+                                 .max()))
+        last, _ = Mod.prefill(params, cfg, {"tokens": toks})
+        perr = float((last[:, :V] - full[:, -1, :V]).abs().max())
+        scale = float(full[..., :V].abs().max())
+    finally:
+        Mod.ACT_DTYPE = old
+    _check(np.isfinite(scale) and err <= tol * max(scale, 1.0)
+           and perr <= tol * max(scale, 1.0),
+           f"{cfg.name} fp32 decode consistency: steps {err}, prefill "
+           f"{perr}, scale {scale}, tol {tol}")
+    return err, perr, scale
+
+
+def _decode_steps(torch, Mod, cfg, params, dev, batch: int, length: int,
+                  steps: int, seed: int):
+    """A bf16 cache [L, batch, length, K, hd] filled from a seeded
+    generator; ``steps`` decode steps at the last indices, timed with CUDA
+    events around all of them (ms per step), after two warm steps."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cache = Mod.make_cache(cfg, batch, length, device=dev)
+    for t in cache.values():
+        t.normal_(generator=g)
+    tok = torch.randint(0, cfg.vocab_size, (batch,), generator=g,
+                        device=dev, dtype=torch.int32)
+    for i in range(2):
+        Mod.serve_step(params, cfg, tok, cache, length - steps - 2 + i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        logits, cache = Mod.serve_step(params, cfg, tok, cache,
+                                       length - steps + i)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    end.record()
+    end.synchronize()
+    _check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+           f"{cfg.name} decode at cache length {length}: logits")
+    return start.elapsed_time(end) / steps, cache, tok
+
+
+def _profiled_decode(torch, Mod, cfg, params, dev, batch: int, length: int,
+                     steps: int, seed: int):
+    """``_decode_steps``, then one more step at the last index under the
+    profiler; prints both. Returns (ms per step, the bf16 cache)."""
+    ms, cache, tok = _decode_steps(torch, Mod, cfg, params, dev, batch,
+                                   length, steps, seed)
+    idle, wall, dev_ms, top = profiled(torch, lambda: Mod.serve_step(
+        params, cfg, tok, cache, length - 1))
+    print(f"serve {cfg.name} decode (batch {batch}, cache {length}): "
+          f"{ms:.3f} ms/step over {steps} steps; one step profiled: wall "
+          f"{wall:.3f} ms, device {dev_ms:.3f} ms, idle share {idle:.3f}; "
+          f"top {top}", flush=True)
+    return ms, cache
+
+
+def phase_serve(torch, K, dev, card: str):
+    """8a-8e (module docstring). Returns (serve launches of 8a's run, the
+    MoE exchange's K1/K2 stats at layers.moe.wi, 8d's launches)."""
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, Loader, SyntheticCorpus
+    from repro_torch.launch import train
+    from repro_torch.models import model as Mod
+
+    # 8a: qwen2-1.5b through serve.main
+    out, deltas, run, peak, wall = _serve_run(torch, K, dev, SERVE_ARCH,
+                                              SERVE_TRAFFIC)
+    dms = out["decode_ms"]
+    print(f"serve {SERVE_ARCH} full width, batch 8 x prompt 1024, gen 64 "
+          f"({card}): prefill {out['prefill_ms']:.3f} ms, decode "
+          f"{float(np.median(dms)):.3f} ms/token p50 (mean "
+          f"{float(np.mean(dms)):.3f}, max {max(dms):.3f}), peak memory "
+          f"{peak:.2f} GiB, run {wall:.1f} s; launches: absorb "
+          f"{deltas['absorbed']}, query {deltas['queried']}, request-shape "
+          f"search {deltas['clustered']}, the run {run}", flush=True)
+
+    # 8b: fp32 decode consistency at full width
+    cfg = get_config(SERVE_ARCH)
+    err, perr, scale = _decode_consistency(torch, Mod, cfg, dev, 5e-3)
+    print(f"serve {SERVE_ARCH} fp32 decode consistency (batch 2, S = "
+          f"{CONSISTENCY_S}): max |serve_step - forward_logits| {err:.3g}, "
+          f"prefill last position {perr:.3g}, logit scale {scale:.3g} "
+          f"(bar {5e-3 * max(scale, 1.0):.3g})", flush=True)
+
+    # decode steps at 8a's cache, then at decode_32k's cache length at
+    # batch 8, each with one step profiled
+    torch.cuda.empty_cache()
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    T = 1024 + 64
+    _, cache = _profiled_decode(torch, Mod, cfg, params, dev, 8, T, 16, 10)
+    del cache
+    torch.cuda.empty_cache()
+    ms_long, cache = _profiled_decode(torch, Mod, cfg, params, dev,
+                                      LONG_BATCH, LONG_T, LONG_STEPS, 11)
+    kv = sum(t.numel() * t.element_size() for t in cache.values())
+    del cache
+    n_emb = params["emb"]["tok"].numel()
+    n_rest = sum(x.numel() for p, x in TT.flatten(params) if p != "emb.tok")
+    k_elems = kv // 4                   # k's elements (k and v in bf16)
+    nbytes = 8 * n_rest + 4 * n_emb + kv + 8 * k_elems
+    b_long, _ = bound(nbytes, 0)
+    floor, _ = bound(2 * (n_rest + n_emb) + kv, 0)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve decode at cache length {LONG_T} (batch {LONG_BATCH}, "
+          f"cut from decode_32k's 128; KV {kv / 1e9:.2f} GB): "
+          f"{ms_long:.3f} ms/token over {LONG_STEPS} steps, "
+          f"{ms_long / floor:.1f}x its bound {floor:.3f} ms (bf16 weights "
+          f"and KV read once); the current design's traffic "
+          f"{b_long:.3f} ms ({nbytes / 1e9:.2f} GB: per-call casts "
+          f"{8 * n_rest / 1e9:.2f}, fp32 tied head {4 * n_emb / 1e9:.2f}, "
+          f"KV {kv / 1e9:.2f}, k's fp32 up-cast {8 * k_elems / 1e9:.2f})",
+          flush=True)
+
+    # 8d: granite-moe serve, fp32 consistency, 3 train steps, the exchange
+    mcfg = get_config(MOE_ARCH)
+    out, deltas, mrun, mpeak, mwall = _serve_run(torch, K, dev, MOE_ARCH,
+                                                 SERVE_TRAFFIC)
+    dms = out["decode_ms"]
+    print(f"serve {MOE_ARCH} full width, batch 8 x prompt 1024, gen 64: "
+          f"prefill {out['prefill_ms']:.3f} ms, decode "
+          f"{float(np.median(dms)):.3f} ms/token p50 (mean "
+          f"{float(np.mean(dms)):.3f}), peak memory {mpeak:.2f} GiB, run "
+          f"{mwall:.1f} s; launches: absorb {deltas['absorbed']}, query "
+          f"{deltas['queried']}, the run {mrun}", flush=True)
+    err, perr, scale = _decode_consistency(
+        torch, Mod, no_drop(mcfg), dev, 2e-2)
+    print(f"serve {MOE_ARCH} fp32 decode consistency (capacity_factor "
+          f"{no_drop(mcfg).capacity_factor:g}): "
+          f"max step error {err:.3g}, prefill {perr:.3g}, scale "
+          f"{scale:.3g} (bar {2e-2 * max(scale, 1.0):.3g})", flush=True)
+    torch.cuda.empty_cache()
+    params, _ = Mod.init_model(mcfg, seed=0, device=dev)
+    _profiled_decode(torch, Mod, mcfg, params, dev, 8, T, 16, 12)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", MOE_ARCH, "--steps", "3", "--batch", "8", "--seq",
+            "128", "--mesh", "1x1x1", "--compress", "--importance-sampling",
+            "--log-every", "1"]
+    t0 = time.perf_counter()
+    state, rec, trun = _train_run(torch, K, train, argv)
+    twall = time.perf_counter() - t0
+    tpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [rec["loss"][s] for s in (1, 2, 3)]
+    _check(all(np.isfinite(losses)), f"{MOE_ARCH} train losses {losses}")
+    _check(set(rec["steps"]) == {MOE_STEP_LAUNCHES},
+           f"{MOE_ARCH} launches per step {rec['steps']}, want "
+           f"{MOE_STEP_LAUNCHES}")
+    secs = [rec["sec"][s] for s in (1, 2, 3)]
+    print(f"train {MOE_ARCH} full width, batch 8 x seq 128, sampled "
+          f"exchange k = 256 at one pod: losses "
+          f"{[round(x, 4) for x in losses]}, step wall s "
+          f"{[round(x, 4) for x in secs]}, peak memory {tpeak:.2f} GiB, run "
+          f"{twall:.1f} s; launches: the importance build {rec['before']}, "
+          f"each step {MOE_STEP_LAUNCHES}, the run {trun}", flush=True)
+    dcfg = DataConfig(vocab_size=mcfg.vocab_size, seq_len=128,
+                      global_batch=8, n_docs=20_000)
+    batch = train.make_batch(mcfg, Loader(SyntheticCorpus(dcfg),
+                                          dcfg).batch(3), dcfg, dev)
+    grads = _leaf_grads(torch, Mod, TT, mcfg, state["params"], batch)
+    wi = grads["layers"]["moe"]["wi"].reshape(-1)
+    del grads, state
+    torch.cuda.empty_cache()
+    moe_x = big_leaf_kernels(torch, dev, wi, 0x5EED0018, "MoE exchange at "
+                             "layers.moe.wi")
+    del wi
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    dist.destroy_process_group()           # train.main's one-rank group
+
+    # 8e: qwen2-moe-a2.7b serve (60 experts, 4 shared, QKV bias)
+    out, deltas, brun, bpeak, bwall = _serve_run(
+        torch, K, dev, BIG_MOE_ARCH, BIG_MOE_TRAFFIC)
+    dms = out["decode_ms"]
+    print(f"serve {BIG_MOE_ARCH} full width, batch 4 x prompt 512, gen 16: "
+          f"prefill {out['prefill_ms']:.3f} ms, decode "
+          f"{float(np.median(dms)):.3f} ms/token p50, peak memory "
+          f"{bpeak:.2f} GiB, run {bwall:.1f} s; launches: the run {brun}",
+          flush=True)
+    torch.cuda.empty_cache()
+    bcfg = get_config(BIG_MOE_ARCH)
+    params, _ = Mod.init_model(bcfg, seed=0, device=dev)
+    err, perr, scale = _decode_consistency(
+        torch, Mod, no_drop(bcfg), dev, 2e-2, params)
+    print(f"serve {BIG_MOE_ARCH} fp32 decode consistency (capacity_factor "
+          f"{no_drop(bcfg).capacity_factor:g}): max step error {err:.3g}, prefill {perr:.3g}, scale "
+          f"{scale:.3g} (bar {2e-2 * max(scale, 1.0):.3g})", flush=True)
+    _profiled_decode(torch, Mod, bcfg, params, dev, 4, 512 + 16, 8, 13)
+    del params
+    torch.cuda.empty_cache()
+    return (dict(zip(K.COUNTED, run)),
+            {name: {f"moe_exchange_{key}": v for key, v in row.items()}
+             for name, row in moe_x.items()},
+            dict(zip(K.COUNTED, trun)))
+
+
 def member_triples(torch, sk):
     """A sketch's member slots as a sorted list of (key, weight, prob)."""
     m = sk.member & sk.valid
@@ -1855,6 +2357,7 @@ def main() -> int:
     phase_scaleout(torch, C, K, pool_mod, query_mod, dev, card)
     train_stats, train_counts = phase_train(torch, C, K, dev)
     phase_train_multiprocess(torch)
+    serve_counts, moe_stats, moe_counts = phase_serve(torch, K, dev, card)
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),
@@ -1871,7 +2374,10 @@ def main() -> int:
                      "replaces": f"src/repro/kernels/{tpu}",
                      "launches": launches, **kstats[name],
                      **train_stats.get(name, {}),
-                     "train_launches": train_counts[name]})
+                     "train_launches": train_counts[name],
+                     **moe_stats.get(name, {}),
+                     "moe_train_launches": moe_counts[name],
+                     "serve_launches": serve_counts[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ address, the world size and the rank) before building a mesh. Groups on
 gloo take CPU tensors: the collectives here stage CUDA tensors through the
 host for them.
 
-A ``model`` axis > 1 (tensor parallelism) is not ported yet: ROADMAP A.5.
+A ``model`` axis > 1 (tensor parallelism) is not ported yet.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ class Mesh:
         if dict(zip(axis_names, shape)).get("model", 1) > 1:
             raise NotImplementedError(
                 "a 'model' mesh axis > 1 (tensor parallelism) is not ported "
-                "yet: ROADMAP A.5")
+                "yet: the tensor-parallel placement waits")
         dev = resolve_device(device)
         ensure_process_group(dev)
         world = dist.get_world_size()

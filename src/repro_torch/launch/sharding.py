@@ -7,8 +7,8 @@ to the reference's ``PartitionSpec``s. A dimension is sharded on "model"
 only when its size divides evenly. The port runs at a ``model`` axis of 1
 (``launch/mesh.py``), so these specs describe placements; the only
 placement it carries out is the batch split over (pod, data)
-(``batch_slice``). Decode caches (``cache_shardings``) wait for the decode
-path (ROADMAP A.5).
+(``batch_slice``). ``cache_pspecs`` is the reference's ``cache_shardings``
+rule for decode caches.
 """
 from __future__ import annotations
 
@@ -67,6 +67,39 @@ def batch_pspec(mesh) -> tuple:
     if "pod" in mesh.axis_names:
         return (("pod", "data"),)
     return ("data",)
+
+
+def _nshards(mesh, axes) -> int:
+    n = 1
+    for a in (axes if isinstance(axes, tuple) else (axes,)):
+        n *= mesh.shape[a]
+    return n
+
+
+def cache_pspecs(cache_tree, cfg, mesh):
+    """Decode caches: the batch dim (dim 1; the stacked layers lead) on
+    (pod?, data), the LARGEST divisible remaining dim on "model" (seq for
+    kv caches: sequence-parallel decode attention). Kv layout [L, B, S, K,
+    hd] -> (None, batch, model?)."""
+    b = batch_pspec(mesh)[0]
+    nb = _nshards(mesh, b)
+    msize = mesh.shape["model"]
+
+    def one(leaf):
+        dims = list(leaf.shape)
+        axes = [None] * len(dims)
+        if len(dims) >= 2 and dims[1] % nb == 0:
+            axes[1] = b
+        cand = sorted(((d, i) for i, d in enumerate(dims[2:], start=2)),
+                      reverse=True)
+        for d, i in cand:
+            if d % msize == 0 and d >= msize:
+                axes[i] = "model"
+                break
+        while axes and axes[-1] is None:
+            axes.pop()
+        return tuple(axes)
+    return T.tree_map(one, cache_tree)
 
 
 def batch_slice(mesh, n: int) -> slice:

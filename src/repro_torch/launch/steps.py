@@ -1,16 +1,15 @@
-"""The training step and the spec trees of its inputs and state.
+"""The training, prefill and decode steps and the spec trees of their
+inputs and state.
 
-Port of ``repro/launch/steps.py`` ``make_train_step`` and the helpers it
-needs. Each rank runs the step on its rows of the global batch
-(``sharding.batch_slice``): gradients are taken on them, averaged over the
-``data`` group (the pod's batch), then over the ``pod`` group densely or,
-with ``compress``, through the sampled exchange
+Port of ``repro/launch/steps.py``. Each rank runs the train step on its
+rows of the global batch (``sharding.batch_slice``): gradients are taken
+on them, averaged over the ``data`` group (the pod's batch), then over the
+``pod`` group densely or, with ``compress``, through the sampled exchange
 (``distopt.compression``); AdamW follows, and with ``telemetry`` the
-step's loss is folded into a device-resident MultiSketch. No state is
-donated: every step returns fresh tensors and leaves its input valid.
-
-Decode and prefill steps (``make_prefill_step``, ``make_serve_step``)
-wait for the decode path (ROADMAP A.5).
+step's loss is folded into a device-resident MultiSketch. No train state
+is donated: every train step returns fresh tensors and leaves its input
+valid. The decode step writes into the cache it is given (the
+reference's serve step donates its cache).
 """
 from __future__ import annotations
 
@@ -39,6 +38,12 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     return {"tokens": torch.empty(dims, dtype=torch.int32, device="meta")}
 
 
+def cache_abstract(cfg: ModelConfig, shape: ShapeConfig):
+    """The decode cache of (arch x shape) as meta-device tensors."""
+    return Mod.make_cache(cfg, shape.global_batch, shape.seq_len,
+                          device="meta")
+
+
 def abstract_state(cfg: ModelConfig, telemetry=None):
     """(meta-device state tree, param spec tree): shapes only."""
     p, specs = Mod.abstract_params(cfg)
@@ -62,6 +67,13 @@ def state_specs(cfg: ModelConfig, mesh, telemetry=None) -> dict:
     return out
 
 
+def _check_placement(cfg: ModelConfig):
+    Mod.check_family(cfg)
+    if cfg.fsdp:
+        raise NotImplementedError(
+            f"{cfg.name}: FSDP placement is not ported yet")
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
                     grad_transform=None, microbatch: Optional[int] = None,
                     compress: Optional[dict] = None,
@@ -81,10 +93,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
     (the reference folds on its plain path; the two give identical
     slabs).
     """
-    Mod.check_family(cfg)
-    if cfg.fsdp:
-        raise NotImplementedError(
-            f"{cfg.name}: FSDP placement is not ported yet (ROADMAP A.5)")
+    _check_placement(cfg)
     st_specs = state_specs(cfg, mesh, telemetry)
 
     def grads_once(params, batch):
@@ -169,3 +178,34 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
         return new_state, {"loss": loss, **metrics, **om}
 
     return step_fn, st_specs
+
+
+def make_prefill_step(cfg: ModelConfig, mesh,
+                      shape: Optional[ShapeConfig] = None):
+    """Returns (step, param pspecs, cache pspecs: None without ``shape``);
+    ``step(params, batch) -> (last-position logits, cache)``
+    (``Mod.prefill``)."""
+    _check_placement(cfg)
+    p, specs = Mod.abstract_params(cfg)
+    psp = Sh.param_pspecs(specs, p, mesh)
+
+    def step_fn(params, batch):
+        return Mod.prefill(params, cfg, batch)
+    cache = (None if shape is None else
+             Sh.cache_pspecs(cache_abstract(cfg, shape), cfg, mesh))
+    return step_fn, psp, cache
+
+
+def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """Single-token decode step against a ``shape.seq_len`` cache. Returns
+    (step, param pspecs, cache pspecs); ``step(params, tokens, cache,
+    index) -> (logits, cache)`` writes into ``cache`` in place
+    (``Mod.serve_step``)."""
+    _check_placement(cfg)
+    p, specs = Mod.abstract_params(cfg)
+    psp = Sh.param_pspecs(specs, p, mesh)
+
+    def step_fn(params, tokens, cache, index):
+        return Mod.serve_step(params, cfg, tokens, cache, index)
+    return step_fn, psp, Sh.cache_pspecs(cache_abstract(cfg, shape), cfg,
+                                         mesh)

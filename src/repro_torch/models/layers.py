@@ -1,6 +1,6 @@
-"""Foundational layers of the dense family.
+"""Foundational layers of the dense and MoE families.
 
-Port of the dense parts of ``repro/models/layers.py``. Conventions:
+Port of ``repro/models/layers.py``. Conventions:
   * activations [batch, seq, ...]; params are nested dicts of tensors,
     stacked along a leading layer axis where ``lead`` says so, with the
     reference's ``(d_in, d_out)`` weight layout and names;
@@ -13,7 +13,11 @@ Port of the dense parts of ``repro/models/layers.py``. Conventions:
     arithmetic: fp32 scores, fp32 accumulation;
   * the cross-entropy is taken chunk by chunk over the sequence, each
     chunk recomputed in backward, so the full [B, S, V] logits never
-    exist at once.
+    exist at once;
+  * decode attends one new token over the whole cache in one einsum
+    (``decode_attention``), and the cache branch of ``apply_attention``
+    writes the step's k/v into the cache IN PLACE (the reference's serve
+    step donates its cache, so its old cache is gone too).
 
 The reference's ``shard_tokens`` and ``shard_heads`` are GSPMD layout hints
 for a ``model`` mesh axis > 1; the port runs at a ``model`` axis of 1,
@@ -283,9 +287,28 @@ def init_attention(init: Init, cfg, lead=()):
     return p, s
 
 
-def apply_attention(p, x, cfg, positions):
-    """Full-sequence attention (decode, with a cache, is not ported yet).
-    Returns (out [B,S,D], None)."""
+def decode_attention(q, k, v, cur_index: int):
+    """Single-token attention, un-chunked: q [B,1,H,hd] vs cache
+    [B,S,K,hd]. Scores in fp32, keys past ``cur_index`` masked, the
+    probabilities cast to the cache's dtype before ``p @ v``, as the
+    reference computes it."""
+    B, _, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    qn = q.reshape(B, K, G, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qn.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(hd)
+    valid = (torch.arange(S, device=q.device) <= cur_index)[None, None,
+                                                            None, :]
+    s = torch.where(valid, s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p.to(v.dtype), v)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def project_qkv(p, x, cfg, positions):
+    """x [B,S,D] -> q [B,S,H,hd], k and v [B,S,K,hd]: the projections
+    (+ bias), RoPE on q and k."""
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -296,10 +319,37 @@ def apply_attention(p, x, cfg, positions):
         q = q + p["bq"].to(dt).reshape(1, 1, H, hd)
         k = k + p["bk"].to(dt).reshape(1, 1, K, hd)
         v = v + p["bv"].to(dt).reshape(1, 1, K, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = chunked_attention(q, k, v, causal=cfg.causal, chunk=cfg.attn_chunk)
-    return out.reshape(B, S, H * hd) @ p["wo"].to(dt), None
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def apply_attention(p, x, cfg, positions, cache=None, cache_index=None):
+    """Full-sequence (``cache=None``) or single-step decode.
+
+    cache: dict(k=[B,Smax,K,hd], v=[B,Smax,K,hd]); cache_index: the host
+    int position of this step's token. The decode branch writes the step's
+    k/v into ``cache`` in place and returns it. Returns (out [B,S,D],
+    new_cache or None)."""
+    B, S, _ = x.shape
+    q, k, v = project_qkv(p, x, cfg, positions)
+    if cache is None:
+        out = chunked_attention(q, k, v, causal=cfg.causal,
+                                chunk=cfg.attn_chunk)
+    else:
+        idx = int(cache_index)
+        ck, cv = cache["k"], cache["v"]
+        if S != 1:
+            raise ValueError(f"a cached call decodes one token, got {S}")
+        if not 0 <= idx < ck.shape[1]:
+            # the reference's dynamic_update_slice would clamp the write
+            # onto the last slot; here it is an error
+            raise IndexError(f"cache index {idx} out of range for a cache "
+                             f"of length {ck.shape[1]}")
+        ck[:, idx:idx + 1] = k.to(ck.dtype)
+        cv[:, idx:idx + 1] = v.to(cv.dtype)
+        out = decode_attention(q, ck, cv, idx)
+        cache = {"k": ck, "v": cv}
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype), cache
 
 
 # ---------------------------------------------------------------------------
@@ -391,3 +441,15 @@ def chunked_ce_loss(emb_params, hidden, labels, mask, chunk: int,
             l, c = _chunk_loss(*args)
         tot, cnt = tot + l, cnt + c
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+def logits_last(emb_params, hidden_last, vocab_size: int | None = None):
+    """Decode-step logits for the final position. hidden_last: [B, D].
+    Padded vocab rows are masked to -1e30 (the shape stays padded)."""
+    W = unembed_matrix(emb_params)
+    logits = torch.einsum("bd,vd->bv", hidden_last.to(torch.float32),
+                          W.to(torch.float32))
+    if vocab_size is not None and vocab_size < W.shape[0]:
+        logits = logits + (torch.arange(W.shape[0], device=W.device)
+                           >= vocab_size) * -1e30
+    return logits

@@ -1,0 +1,134 @@
+"""Mixture-of-Experts block (granite-moe, qwen2-moe).
+
+Port of ``repro/models/moe.py``. Dispatch is capacity-based scatter/gather
+(GShard-style semantics) without a [T, E, C] one-hot dispatch product:
+each token's top-k choices take slots from a per-row running count of
+expert choices, and tokens move to [B, E*C, D] expert buffers and back by
+index. Routing is the reference's to the bit:
+
+  * top-k breaks ties lowest expert index first, as ``lax.top_k`` does
+    (a stable descending sort; ``torch.topk`` promises no tie order, and
+    bf16 router logits tie often);
+  * a choice past its expert's capacity C goes to a spare slot E*C, the
+    reference's out-of-bounds "drop" index: the buffers carry one spare
+    row, sliced off before the experts run, and it reads back as 0.
+
+Kept destinations are unique, so the ``index_add`` into the buffers adds
+each token onto zeros (exact and order-free on the card); only the spare
+row takes collisions. The expert FFN is a batched product over E, as the
+reference's einsum.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from .layers import Init, apply_mlp, dense_init, init_mlp
+
+
+def moe_capacity(tokens_per_row: int, cfg) -> int:
+    c = math.ceil(tokens_per_row * cfg.moe_top_k * cfg.capacity_factor
+                  / cfg.num_experts)
+    return max(8 * math.ceil(c / 8), 8)  # lane-aligned
+
+
+def _n_experts(cfg) -> int:
+    return max(cfg.num_experts_padded, cfg.num_experts)
+
+
+def init_moe(init: Init, cfg, lead=()):
+    d, f, E = cfg.d_model, cfg.d_ff, _n_experts(cfg)
+    p, s = {}, {}
+    p["router"], s["router"] = dense_init(init, d, E, ("embed", None), lead)
+    p["wi"] = init.normal((*lead, E, d, f), 1.0 / math.sqrt(d))
+    p["wg"] = init.normal((*lead, E, d, f), 1.0 / math.sqrt(d))
+    p["wo"] = init.normal((*lead, E, f, d), 1.0 / math.sqrt(f))
+    s["wi"] = ("expert", "embed", "mlp")
+    s["wg"] = ("expert", "embed", "mlp")
+    s["wo"] = ("expert", "mlp", "embed")
+    if cfg.num_shared_experts:
+        p["shared"], s["shared"] = init_mlp(
+            init, cfg, d_ff=cfg.num_shared_experts * cfg.d_ff, lead=lead)
+    return p, s
+
+
+class Routing(NamedTuple):
+    """Where each of a row's S*k choices goes. logits/gates [B,S,E] fp32;
+    topv (renormalised) / topi [B,S,k]; slot, keep, dest [B,S*k]."""
+    logits: torch.Tensor
+    gates: torch.Tensor
+    topv: torch.Tensor
+    topi: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    dest: torch.Tensor
+
+
+def route(p, x, cfg) -> Routing:
+    """The router, top-k and slot assignment of ``apply_moe``."""
+    B, S, _ = x.shape
+    E, k = _n_experts(cfg), cfg.moe_top_k
+    C = moe_capacity(S, cfg)
+    logits = (x @ p["router"].to(x.dtype)).to(torch.float32)   # [B,S,E]
+    if E > cfg.num_experts:  # padded experts are masked out of routing
+        logits = logits + (torch.arange(E, device=x.device)
+                           >= cfg.num_experts) * -1e30
+    gates = torch.softmax(logits, dim=-1)
+    srt = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = srt.values[..., :k], srt.indices[..., :k]
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    # slots: the running count of earlier choices of the same expert over
+    # the row's flattened (S*k) choices
+    flat_e = topi.reshape(B, S * k)
+    pos = torch.cumsum(F.one_hot(flat_e, E), dim=1) - 1        # [B,S*k,E]
+    slot = torch.gather(pos, -1, flat_e[..., None])[..., 0]
+    keep = slot < C
+    dest = torch.where(keep, flat_e * C + slot, E * C)         # E*C: drop
+    return Routing(logits, gates, topv, topi, slot, keep, dest)
+
+
+def apply_moe(p, x, cfg):
+    """x: [B, S, D] -> ([B, S, D], aux_losses dict)."""
+    B, S, D = x.shape
+    E, k = _n_experts(cfg), cfg.moe_top_k
+    C = moe_capacity(S, cfg)
+    dt = x.dtype
+    r = route(p, x, cfg)
+
+    # --- load-balancing + z losses (Switch-style) ---
+    me = torch.mean(r.gates, dim=(0, 1))                        # [E]
+    ce = torch.mean(F.one_hot(r.topi, E).sum(2).to(torch.float32),
+                    dim=(0, 1))                                 # frac routed
+    aux_loss = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
+
+    # --- scatter tokens to [B, E*C (+1 spare), D] expert buffers ---
+    rows = E * C + 1
+    flat = (r.dest + rows * torch.arange(B, device=x.device)[:, None]
+            ).reshape(-1)
+    xk = x.repeat_interleave(k, dim=1).reshape(B * S * k, D)  # [B*S*k, D]
+    buf = torch.zeros((B * rows, D), dtype=dt, device=x.device)
+    buf = buf.index_add(0, flat, xk).reshape(B, rows, D)
+    expert_in = buf[:, :-1].reshape(B, E, C, D)
+
+    # --- expert FFN (swiglu) ---
+    h = torch.einsum("becd,edf->becf", expert_in, p["wi"].to(dt))
+    g = torch.einsum("becd,edf->becf", expert_in, p["wg"].to(dt))
+    h = F.silu(g) * h
+    expert_out = torch.einsum("becf,efd->becd", h, p["wo"].to(dt))
+
+    # --- gather back (the spare row reads 0) + combine with the gates ---
+    padded = torch.cat([expert_out.reshape(B, E * C, D),
+                        torch.zeros((B, 1, D), dtype=dt, device=x.device)],
+                       dim=1)
+    back = padded.reshape(B * rows, D).index_select(0, flat)
+    wts = (r.topv.reshape(B, S * k) * r.keep.to(torch.float32)).to(dt)
+    out = (back.reshape(B, S * k, D) * wts[..., None]).reshape(
+        B, S, k, D).sum(dim=2)
+
+    if cfg.num_shared_experts:
+        out = out + apply_mlp(p["shared"], x, cfg)
+    return out, {"moe_aux": aux_loss, "moe_z": z_loss}

@@ -653,3 +653,62 @@ def test_full_width_train_step(cuda):
     assert np.isfinite(float(m["loss"])) and float(m["loss"]) > 0
     assert int(state["opt"]["step"]) == 1
     assert int(state["tel"].valid.sum()) == 8
+
+
+# ------------------------------------------------------ MoE and decode
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "qwen2-moe-a2.7b"])
+def test_moe_and_decode_on_card_match_cpu(cuda, arch):
+    """A MoE smoke config on the card against the same calls on the CPU
+    (qwen2-moe: shared experts, QKV bias, 60 experts): on an exact router
+    (integer activations and router weights) the routing (top-k, slots,
+    drops) is equal, bf16 and fp32; apply_moe's output within 1e-5 x
+    scale in fp32 and 2e-2 in bf16; prefill and 4 serve steps in fp32
+    within 1e-4 x scale of the CPU's logits."""
+    import dataclasses
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as Mod
+    from repro_torch.models import moe as MOE
+    cfg = dataclasses.replace(get_smoke_config(arch), capacity_factor=0.5)
+    params, _ = Mod.init_model(cfg, seed=3, device="cpu")
+    lp = TT.tree_map(lambda t: t[0], params["layers"]["moe"])
+    rng = np.random.default_rng(4)
+    lp["router"] = torch.from_numpy(rng.integers(
+        -1, 2, tuple(lp["router"].shape)).astype(np.float32))
+    x = torch.from_numpy(rng.integers(-1, 2, (2, 32, cfg.d_model)).astype(
+        np.float32))
+    on = lambda t: TT.tree_map(lambda a: a.to(cuda), t)
+    for dt, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        a = MOE.route(lp, x.to(dt), cfg)
+        b = MOE.route(on(lp), x.to(dt).to(cuda), cfg)
+        for name in ("topi", "slot", "keep", "dest"):
+            assert torch.equal(getattr(a, name), getattr(b, name).cpu()), name
+        assert 0 < int(a.keep.sum()) < a.keep.numel()
+        oa, _ = MOE.apply_moe(lp, x.to(dt), cfg)
+        ob, _ = MOE.apply_moe(on(lp), x.to(dt).to(cuda), cfg)
+        gap = float((oa.float() - ob.float().cpu()).abs().max())
+        assert gap <= rel * float(oa.float().abs().max()), (dt, gap)
+    old = Mod.ACT_DTYPE
+    Mod.ACT_DTYPE = torch.float32
+    try:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))
+                                .astype(np.int32))
+        out = {}
+        for dev in ("cpu", cuda):
+            p = params if dev == "cpu" else on(params)
+            logits, cache = Mod.prefill(p, cfg, {"tokens": toks.to(dev)})
+            cache = Mod.grow_cache(cfg, cache, 4)
+            steps = [logits]
+            for t in range(4):
+                logits, cache = Mod.serve_step(p, cfg, toks[:, t].to(dev),
+                                               cache, 16 + t)
+                steps.append(logits)
+            out[str(dev)] = [s.cpu() for s in steps]
+        for a, b in zip(out["cpu"], out[str(cuda)]):
+            live = a > -1e29
+            assert torch.equal(live, b > -1e29)
+            assert float((a[live] - b[live]).abs().max()) <= 1e-4 * float(
+                a[live].abs().max())
+    finally:
+        Mod.ACT_DTYPE = old

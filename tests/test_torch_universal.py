@@ -71,7 +71,16 @@ _ENTRY_POINTS = {
             vocab_size=8, seq_len=4, global_batch=2, n_docs=64)),
         _train_mods()[3].DataConfig(vocab_size=8, seq_len=4, global_batch=2,
                                     n_docs=64), importance=True),
-    "train_main": lambda: _train_mods()[4].main(["--smoke", "--steps", "1"])}
+    "train_main": lambda: _train_mods()[4].main(["--smoke", "--steps", "1"]),
+    "make_cache": lambda: _train_mods()[0].make_cache(
+        _train_mods()[1].get_smoke_config("granite-moe-1b-a400m"), 2, 8),
+    "serve_main": lambda: _serve_main(["--smoke", "--arch",
+                                       "granite-moe-1b-a400m"])}
+
+
+def _serve_main(argv):
+    from repro_torch.launch import serve
+    return serve.main(argv)
 
 
 def _train_mods():
