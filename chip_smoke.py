@@ -131,7 +131,26 @@ Phases (any failure exits non-zero; nothing is caught):
    (402,653,184 rows; the checks and timings of 7a's wg leaf); (e)
    qwen2-moe-a2.7b through serve.main at batch 4 x prompt 512, gen 16
    (the checks of (a)), the fp32 consistency of (d), then decode steps
-   timed and profiled at batch 4, cache 528.
+   timed and profiled at batch 4, cache 528;
+9. the state-space families at full width, random weights from seed 0:
+   falcon-mamba-7b (ssm: 64 Mamba-1 layers, d_model 4096, d_inner 8192,
+   N = 16, vocab 65,024; 7,272,665,088 parameters) and zamba2-2.7b
+   (hybrid: 54 Mamba-2 layers, 80 heads x 64, N = 64, and one shared
+   attention + SwiGLU block after every 6; 2,422,670,240): (a)
+   falcon-mamba through ``serve.main`` at 8a's traffic with 8a's checks;
+   (b) for both, the fp32 consistency of 8b at its 5e-3 bar; (c)
+   falcon-mamba's decode as 8c at 9a's state (printed beside a 1,088-slot
+   qwen2-1.5b KV cache), then 16 steps at batch 1 from long_500k's last
+   position 524,287 and from position 2 (a seeded state, no prefill);
+   zamba2's decode at 9d's cache and at decode_32k's 32,768 slots with
+   the batch cut from 128 to 8 (24.2 GB of KV from a seeded generator);
+   (d) zamba2 through ``serve.main`` at 8a's traffic with 8a's checks,
+   ``train.main`` for 3 steps (batch 8 x seq 128, ``--compress
+   --importance-sampling``, mesh 1x1x1; launches (20, 21, 1, 0, 0, 0) per
+   step: 19 sampled leaves and the telemetry fold; finite losses) and
+   ``_sample_leaf`` on the real gradient of ``layers.mamba.wx``
+   (707,788,800 rows, F n = 2,123,366,400 < 2^31; the checks and timings
+   of 7a's wg leaf), the train state freed first.
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
@@ -142,7 +161,9 @@ at ``plain_n`` = 65,536, beside the kernel's own time there; every row's
 keys their times at the exchange's largest leaf; every row's
 ``moe_train_launches`` are 8d's run and ``serve_launches`` 8a's
 serve.main run, K1's and K2's ``moe_exchange_*`` keys their times at
-``layers.moe.wi``) and, last,
+``layers.moe.wi``; every row's ``ssm_serve_launches`` are 9a's run and
+``hybrid_train_launches`` 9d's, K1's and K2's ``hybrid_exchange_*`` keys
+their times at ``layers.mamba.wx``) and, last,
 ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -199,6 +220,10 @@ MOE_ARCH = "granite-moe-1b-a400m"
 MOE_STEP_LAUNCHES = (10, 11, 1, 0, 0, 0)   # 9 sampled leaves + 1 fold
 BIG_MOE_ARCH = "qwen2-moe-a2.7b"
 BIG_MOE_TRAFFIC = ["--batch", "4", "--prompt-len", "512", "--gen", "16"]
+SSM_ARCH = "falcon-mamba-7b"        # phase 9: the state-space families
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_STEP_LAUNCHES = (20, 21, 1, 0, 0, 0)  # 19 sampled leaves + 1 fold
+LONG_500K_LAST = 524_287            # long_500k's last position
 
 
 def _fail(msg: str):
@@ -276,14 +301,23 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ulps(a, b):
-    """Per-element ulp distance of two float32 tensors (+inf must match)."""
+def ulps(a, b, chunk: int = 1 << 26):
+    """The largest per-element ulp distance of two float32 tensors (+inf
+    must match), taken ``chunk`` elements at a time: the boolean gather's
+    int64 indices of a whole [3, 707,788,800] pair would need 32 GB."""
     import torch
-    _check(torch.equal(torch.isinf(a), torch.isinf(b)), "inf pattern differs")
-    fin = torch.isfinite(a)
-    ai = a[fin].view(torch.int32).to(torch.int64)
-    bi = b[fin].view(torch.int32).to(torch.int64)
-    return int((ai - bi).abs().max().item()) if ai.numel() else 0
+    a, b = a.reshape(-1), b.reshape(-1)
+    worst = 0
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i:i + chunk], b[i:i + chunk]
+        _check(torch.equal(torch.isinf(x), torch.isinf(y)),
+               "inf pattern differs")
+        fin = torch.isfinite(x)
+        xi = x[fin].view(torch.int32).to(torch.int64)
+        yi = y[fin].view(torch.int32).to(torch.int64)
+        if xi.numel():
+            worst = max(worst, int((xi - yi).abs().max().item()))
+    return worst
 
 
 def max_abs(a, b) -> float:
@@ -1137,7 +1171,11 @@ def profiled(torch, fn):
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0), key=lambda x: -x[1])
     dev_ms = sum(t for _, t in ops)
-    top = ", ".join(f"{name[:40]} {t:.3f}" for name, t in ops[:4])
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0)
+    top = f"{n} device ops; " + ", ".join(f"{name[:40]} {t:.3f}"
+                                          for name, t in ops[:4])
     return max(0.0, 1 - dev_ms / wall), wall, dev_ms, top
 
 
@@ -1516,6 +1554,12 @@ def big_leaf_kernels(torch, dev, g, seed: int, what: str):
     s1 = ulps(seeds, ks.fused_seeds_fvals_plain(
         keys, wn, act, enc, "ppswor", seed, want_fvals=False)[0])
     _check(s1 <= 2, f"{what}: K1 at [3, {n}] {s1} ulp from plain")
+    torch.cuda.empty_cache()
+    p1 = cuda_ms(torch, lambda: ks.fused_seeds_fvals_plain(
+        keys, wn, act, enc, "ppswor", seed, want_fvals=False), reps=3,
+        inner=1)
+    del keys, wn, act                 # K2's plain sort needs the room
+    torch.cuda.empty_cache()
     k2 = cuda_ms(torch, lambda: kbs.batched_bottomk_select(seeds, 257),
                  reps=7, inner=1)
     kv, _, kt = kbs.batched_bottomk_select(seeds, 257)
@@ -1528,9 +1572,6 @@ def big_leaf_kernels(torch, dev, g, seed: int, what: str):
            f"{what}: K2 at [3, {n}] != plain")
     del seeds, kv, pv
     torch.cuda.empty_cache()
-    p1 = cuda_ms(torch, lambda: ks.fused_seeds_fvals_plain(
-        keys, wn, act, enc, "ppswor", seed, want_fvals=False), reps=3,
-        inner=1)
     nf = len(enc)
     b1, by1 = bound(n * (4 + 4 + 1 + 4 * nf), 0)
     b2, by2 = bound(4 * nf * n, 0)
@@ -1541,7 +1582,7 @@ def big_leaf_kernels(torch, dev, g, seed: int, what: str):
           f"{by1}; {s1} ulp from plain), K2 [{nf}, n] k = 257 {k2:.4f} ms "
           f"(plain {p2:.4f}, torch.topk {lib:.4f}, bound {b2:.4f} {by2}; "
           f"= plain)", flush=True)
-    del keys, wn, act, sk
+    del sk
     torch.cuda.empty_cache()
     return {"seeds": {"ms": k1, "plain_ms": p1, "bound_ms": b1,
                       "shape": f"F = {nf}, n = {n}, seeds only"},
@@ -2124,12 +2165,14 @@ def _decode_consistency(torch, Mod, cfg, dev, tol: float, params=None):
 
 def _decode_steps(torch, Mod, cfg, params, dev, batch: int, length: int,
                   steps: int, seed: int):
-    """A bf16 cache [L, batch, length, K, hd] filled from a seeded
-    generator; ``steps`` decode steps at the last indices, timed with CUDA
-    events around all of them (ms per step), after two warm steps."""
+    """A bf16 cache (k/v [L, batch, length, K, hd], SSM states) filled from
+    a seeded generator; ``steps`` decode steps at the last indices, timed
+    with CUDA events around all of them (ms per step), after two warm
+    steps."""
+    from repro_torch import tree as TT
     g = torch.Generator(device=dev).manual_seed(seed)
     cache = Mod.make_cache(cfg, batch, length, device=dev)
-    for t in cache.values():
+    for t in TT.leaves(cache):
         t.normal_(generator=g)
     tok = torch.randint(0, cfg.vocab_size, (batch,), generator=g,
                         device=dev, dtype=torch.int32)
@@ -2307,6 +2350,162 @@ def phase_serve(torch, K, dev, card: str):
             dict(zip(K.COUNTED, trun)))
 
 
+def _ssm_serve(torch, K, dev, card: str, arch: str):
+    """``_serve_run`` at phase 8a's traffic, printed. Returns its launches."""
+    out, deltas, run, peak, wall = _serve_run(torch, K, dev, arch,
+                                              SERVE_TRAFFIC)
+    dms = out["decode_ms"]
+    print(f"serve {arch} full width, batch 8 x prompt 1024, gen 64 "
+          f"({card}): prefill {out['prefill_ms']:.3f} ms, decode "
+          f"{float(np.median(dms)):.3f} ms/token p50 (mean "
+          f"{float(np.mean(dms)):.3f}, max {max(dms):.3f}), peak memory "
+          f"{peak:.2f} GiB, run {wall:.1f} s; launches: absorb "
+          f"{deltas['absorbed']}, query {deltas['queried']}, request-shape "
+          f"search {deltas['clustered']}, the run {run}", flush=True)
+    return run
+
+
+def _ssm_consistency(torch, Mod, cfg, dev):
+    """``_decode_consistency`` at the reference test's 5e-3, printed."""
+    err, perr, scale = _decode_consistency(torch, Mod, cfg, dev, 5e-3)
+    print(f"serve {cfg.name} fp32 decode consistency (batch 2, S = "
+          f"{CONSISTENCY_S}): max |serve_step - forward_logits| {err:.3g}, "
+          f"prefill last position {perr:.3g}, logit scale {scale:.3g} "
+          f"(bar {5e-3 * max(scale, 1.0):.3g})", flush=True)
+
+
+def _nbytes(TT, tree) -> int:
+    return sum(t.numel() * t.element_size() for t in TT.leaves(tree))
+
+
+def _profiled_layer_prefill(torch, cfg, params, dev):
+    """Layer 0's SSM block over a seeded bf16 [8, 1024, d_model] input,
+    under no_grad and the profiler, printed: where a prefill's time goes."""
+    from repro_torch.models import mamba as M
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn((8, 1024, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    lp = {k: t[0] for k, t in params["layers"]["mamba"].items()}
+    apply = M.apply_mamba1 if cfg.ssm_kind == "mamba1" else M.apply_mamba2
+
+    def run():
+        with torch.no_grad():
+            apply(lp, x, cfg)
+    run()
+    idle, wall, dev_ms, top = profiled(torch, run)
+    print(f"prefill of one {cfg.name} layer ({cfg.ssm_kind}) at batch 8 x "
+          f"1024: wall {wall:.3f} ms, device {dev_ms:.3f} ms, idle share "
+          f"{idle:.3f}; top {top}", flush=True)
+
+
+def phase_ssm(torch, K, dev, card: str):
+    """9a-9d (module docstring). Returns (9a's serve launches, 9d's train
+    launches, the hybrid exchange's K1/K2 stats at layers.mamba.wx)."""
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, Loader, SyntheticCorpus
+    from repro_torch.launch import train
+    from repro_torch.models import model as Mod
+    T = 1024 + 64
+
+    # 9a-9c: falcon-mamba-7b: serve, fp32 consistency, decode
+    run = _ssm_serve(torch, K, dev, card, SSM_ARCH)
+    cfg = get_config(SSM_ARCH)
+    _ssm_consistency(torch, Mod, cfg, dev)
+    torch.cuda.empty_cache()
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    _profiled_layer_prefill(torch, cfg, params, dev)
+    _, cache = _profiled_decode(torch, Mod, cfg, params, dev, 8, T, 16, 20)
+    qcfg = get_config(SERVE_ARCH)
+    qkv = 2 * qcfg.num_layers * 8 * T * qcfg.num_kv_heads * qcfg.head_dim * 2
+    print(f"serve {SSM_ARCH} decode state at batch 8: "
+          f"{_nbytes(TT, cache) / 1e9:.4f} GB at any position (conv "
+          f"{_nbytes(TT, cache['conv']) / 1e9:.4f} bf16, h "
+          f"{_nbytes(TT, cache['h']) / 1e9:.4f} fp32); {SERVE_ARCH}'s bf16 "
+          f"KV cache of {T} slots at batch 8: {qkv / 1e9:.4f} GB", flush=True)
+    del cache
+    far, _, _ = _decode_steps(torch, Mod, cfg, params, dev, 1,
+                              LONG_500K_LAST + LONG_STEPS, LONG_STEPS, 21)
+    near, _, _ = _decode_steps(torch, Mod, cfg, params, dev, 1,
+                               LONG_STEPS + 2, LONG_STEPS, 21)
+    print(f"serve {SSM_ARCH} decode at batch 1 (long_500k): "
+          f"{far:.3f} ms/step over {LONG_STEPS} steps from position "
+          f"{LONG_500K_LAST:,}, {near:.3f} ms/step from position 2 (a seeded "
+          f"state; no prefill)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # 9d, 9b, 9c: zamba2-2.7b: serve, fp32 consistency, decode
+    hcfg = get_config(HYBRID_ARCH)
+    _ssm_serve(torch, K, dev, card, HYBRID_ARCH)
+    _ssm_consistency(torch, Mod, hcfg, dev)
+    torch.cuda.empty_cache()
+    params, _ = Mod.init_model(hcfg, seed=0, device=dev)
+    _profiled_layer_prefill(torch, hcfg, params, dev)
+    _profiled_decode(torch, Mod, hcfg, params, dev, 8, T, 16, 22)
+    torch.cuda.empty_cache()
+    ms_long, cache = _profiled_decode(torch, Mod, hcfg, params, dev,
+                                      LONG_BATCH, LONG_T, LONG_STEPS, 23)
+    kv = _nbytes(TT, {"k": cache["k"], "v": cache["v"]})
+    state = _nbytes(TT, cache["mamba"])
+    floor, _ = bound(2 * sum(x.numel() for x in TT.leaves(params)) + kv
+                     + 2 * state, 0)
+    print(f"serve {HYBRID_ARCH} decode at cache length {LONG_T} (batch "
+          f"{LONG_BATCH}, cut from decode_32k's 128; KV {kv / 1e9:.2f} GB "
+          f"over {hcfg.num_layers // hcfg.attn_every} shared-block groups, "
+          f"SSM state {state / 1e9:.3f} GB): {ms_long:.3f} ms/token, "
+          f"{ms_long / floor:.1f}x its bound {floor:.3f} ms (bf16 weights "
+          f"and KV read once, the state read and written)", flush=True)
+    del cache, params
+    torch.cuda.empty_cache()
+
+    # 9d: zamba2-2.7b trains 3 steps with the exchange
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", HYBRID_ARCH, "--steps", "3", "--batch", "8", "--seq",
+            "128", "--mesh", "1x1x1", "--compress", "--importance-sampling",
+            "--log-every", "1"]
+    t0 = time.perf_counter()
+    state, rec, trun = _train_run(torch, K, train, argv)
+    twall = time.perf_counter() - t0
+    tpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [rec["loss"][s] for s in (1, 2, 3)]
+    _check(all(np.isfinite(losses)), f"{HYBRID_ARCH} train losses {losses}")
+    _check(set(rec["steps"]) == {HYBRID_STEP_LAUNCHES},
+           f"{HYBRID_ARCH} launches per step {rec['steps']}, want "
+           f"{HYBRID_STEP_LAUNCHES}")
+    secs = [rec["sec"][s] for s in (1, 2, 3)]
+    print(f"train {HYBRID_ARCH} full width, batch 8 x seq 128, sampled "
+          f"exchange k = 256 at one pod: losses "
+          f"{[round(x, 4) for x in losses]}, step wall s "
+          f"{[round(x, 4) for x in secs]}, peak memory {tpeak:.2f} GiB, run "
+          f"{twall:.1f} s; launches: the importance build {rec['before']}, "
+          f"each step {HYBRID_STEP_LAUNCHES}, the run {trun}", flush=True)
+    params = state["params"]
+    del state                                # the moments and telemetry
+    torch.cuda.empty_cache()
+    dcfg = DataConfig(vocab_size=hcfg.vocab_size, seq_len=128,
+                      global_batch=8, n_docs=20_000)
+    batch = train.make_batch(hcfg, Loader(SyntheticCorpus(dcfg),
+                                          dcfg).batch(3), dcfg, dev)
+    grads = _leaf_grads(torch, Mod, TT, hcfg, params, batch)
+    wx = grads["layers"]["mamba"]["wx"].reshape(-1)
+    del grads, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hyb_x = big_leaf_kernels(torch, dev, wx, 0x5EED0019, "hybrid exchange "
+                             "at layers.mamba.wx")
+    print(f"hybrid exchange at layers.mamba.wx: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (the leaf "
+          f"{wx.numel() * 4 / 1e9:.2f} GB)", flush=True)
+    del wx
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+    dist.destroy_process_group()           # train.main's one-rank group
+    return (dict(zip(K.COUNTED, run)), dict(zip(K.COUNTED, trun)),
+            {name: {f"hybrid_exchange_{key}": v for key, v in row.items()}
+             for name, row in hyb_x.items()})
+
+
 def member_triples(torch, sk):
     """A sketch's member slots as a sorted list of (key, weight, prob)."""
     m = sk.member & sk.valid
@@ -2358,6 +2557,7 @@ def main() -> int:
     train_stats, train_counts = phase_train(torch, C, K, dev)
     phase_train_multiprocess(torch)
     serve_counts, moe_stats, moe_counts = phase_serve(torch, K, dev, card)
+    ssm_counts, hybrid_counts, hybrid_stats = phase_ssm(torch, K, dev, card)
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),
@@ -2377,7 +2577,10 @@ def main() -> int:
                      "train_launches": train_counts[name],
                      **moe_stats.get(name, {}),
                      "moe_train_launches": moe_counts[name],
-                     "serve_launches": serve_counts[name]})
+                     "serve_launches": serve_counts[name],
+                     **hybrid_stats.get(name, {}),
+                     "ssm_serve_launches": ssm_counts[name],
+                     "hybrid_train_launches": hybrid_counts[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

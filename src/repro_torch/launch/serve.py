@@ -11,9 +11,11 @@ statistics (prompt + generated length per request) flow through the
 multi-tenant ``EnginePool`` (K1-K3 at absorb, K4 at query), and the
 request shapes through ``ClusterEngine`` and ``local_search`` (K5).
 
-Runs on the card unless ``--device cpu``. Serves the dense and MoE
-families; an encoder has no decode step and exits, the other families
-raise naming what they wait for.
+Runs on the card unless ``--device cpu``. Serves the dense, MoE, ssm
+(falcon-mamba: per-layer conv and SSM states, no KV cache) and hybrid
+(zamba2: SSM states and the shared attention block's KV cache) families;
+an encoder has no decode step and exits, a vlm raises naming what it
+waits for.
 """
 from __future__ import annotations
 

@@ -79,8 +79,12 @@ def _nshards(mesh, axes) -> int:
 def cache_pspecs(cache_tree, cfg, mesh):
     """Decode caches: the batch dim (dim 1; the stacked layers lead) on
     (pod?, data), the LARGEST divisible remaining dim on "model" (seq for
-    kv caches: sequence-parallel decode attention). Kv layout [L, B, S, K,
-    hd] -> (None, batch, model?)."""
+    kv caches: sequence-parallel decode attention; channels for SSM
+    states). Layouts, nested trees included:
+      dense kv:   [L, B, S, K, hd]   -> (None, batch, model?)
+      hybrid kv:  [G, B, S, K, hd]   -> same
+      mamba conv: [L, B, K-1, C]     -> (None, batch, None, model?)
+      mamba h:    [L, B, di, N] / [L, B, H, hd, N]"""
     b = batch_pspec(mesh)[0]
     nb = _nshards(mesh, b)
     msize = mesh.shape["model"]

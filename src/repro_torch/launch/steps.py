@@ -39,7 +39,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
 
 
 def cache_abstract(cfg: ModelConfig, shape: ShapeConfig):
-    """The decode cache of (arch x shape) as meta-device tensors."""
+    """The decode cache of (arch x shape) as meta-device tensors (SSM
+    states have no time axis: an ssm cache is the same at any seq_len)."""
     return Mod.make_cache(cfg, shape.global_batch, shape.seq_len,
                           device="meta")
 

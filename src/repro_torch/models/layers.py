@@ -1,4 +1,4 @@
-"""Foundational layers of the dense and MoE families.
+"""Foundational layers of the dense, MoE, SSM and hybrid families.
 
 Port of ``repro/models/layers.py``. Conventions:
   * activations [batch, seq, ...]; params are nested dicts of tensors,
@@ -57,6 +57,20 @@ class Init:
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
                                     generator=self.gen)
         return t.mul_(scale)
+
+    def gaussian(self, shape, scale: float) -> torch.Tensor:
+        """``scale`` x an untruncated standard normal, float32."""
+        t = torch.empty(shape, dtype=torch.float32, device=self.device)
+        if self.gen is None:
+            return t
+        return t.normal_(generator=self.gen).mul_(scale)
+
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        """Uniform on [lo, hi), float32."""
+        t = torch.empty(shape, dtype=torch.float32, device=self.device)
+        if self.gen is None:
+            return t
+        return t.uniform_(lo, hi, generator=self.gen)
 
     def full(self, shape, value: float) -> torch.Tensor:
         return torch.full(shape, value, dtype=torch.float32,

@@ -1,17 +1,22 @@
-"""Model assembly: the dense and MoE families.
+"""Model assembly: the dense, MoE, SSM and hybrid families.
 
-Port of the dense and MoE parts of ``repro/models/model.py``:
+Port of the dense, MoE, ``ssm`` (Mamba-1) and ``hybrid`` (Mamba-2 with a
+shared attention block) parts of ``repro/models/model.py``:
   init_model(cfg, seed, device) -> (params, specs)  (specs: logical axes)
   loss_fn(params, cfg, batch)    -> (loss, metrics)  (training forward)
   forward_logits(params, cfg, batch) -> [B, S, V]   (small models / tests)
-  make_cache(cfg, batch, max_len) -> decode cache {"k", "v"} [L,B,T,K,hd]
+  make_cache(cfg, batch, max_len) -> decode cache: {"k", "v"} [L,B,T,K,hd]
+      (dense, MoE); {"conv", "h"} per layer (ssm); {"mamba": {...}, "k",
+      "v"} with k/v [n_groups, B, T, K, hd] (hybrid)
   grow_cache(cfg, cache, extra)  -> the cache with ``extra`` more slots
   prefill(params, cfg, batch)    -> (last-position logits, cache)
   serve_step(params, cfg, tokens, cache, index) -> (logits [B, V], cache)
   Model(cfg, params)             the same tree held as nn.Parameters
 
 The parameter tree is the reference's: stacked ``[L, ...]`` layer leaves,
-``(d_in, d_out)`` weights, the same names. The gradient exchange keys a
+``(d_in, d_out)`` weights, the same names; the hybrid's shared block is
+one unstacked ``shared`` subtree, applied after every ``attn_every``
+layers. The gradient exchange keys a
 leaf's coordinates by their position in the flattened stacked leaf and
 reseeds each leaf by its index in sorted-key order, and AdamW decays the
 leaves with ``ndim >= 2``: per-layer modules would change all three. The
@@ -25,9 +30,9 @@ from threefry's, so parity with the reference goes through
 ``ACT_DTYPE`` is read at call time; tests set it to float32, as the
 reference's do.
 
-``serve_step`` writes the step's k/v into the cache it is given and
-returns that same cache (the reference's serve step donates its cache);
-a caller that still needs the old cache clones it first.
+``serve_step`` writes the step's k/v, conv states and h into the cache it
+is given and returns that same cache (the reference's serve step donates
+its cache); a caller that still needs the old cache clones it first.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch import tree as T
 from . import layers as L
+from . import mamba as M
 from . import moe as MOE
 from .config import ModelConfig
 
@@ -45,8 +51,6 @@ ACT_DTYPE = torch.bfloat16
 
 # families whose layers are not ported yet -> what ports them
 _NOT_PORTED = {
-    "ssm": "models/mamba.py",
-    "hybrid": "models/mamba.py and the hybrid stack",
     "encoder": "the encoder branch of models/model.py",
     "vlm": "the vlm branch of models/model.py",
 }
@@ -54,7 +58,7 @@ _NOT_PORTED = {
 
 def check_family(cfg: ModelConfig):
     """Raise for a family whose layers the port does not have yet."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
             f"it waits for {_NOT_PORTED.get(cfg.family, 'its layers')}")
@@ -64,26 +68,42 @@ def check_family(cfg: ModelConfig):
 # init
 # ---------------------------------------------------------------------------
 
+def _init_block(init, cfg, lead=()):
+    """An attention + MLP block: (params, specs)."""
+    p, s = {}, {}
+    p["ln1"], s["ln1"] = L.init_norm(init, cfg.norm_kind, cfg.d_model, lead)
+    p["attn"], s["attn"] = L.init_attention(init, cfg, lead)
+    p["ln2"], s["ln2"] = L.init_norm(init, cfg.norm_kind, cfg.d_model, lead)
+    if cfg.family == "moe":
+        p["moe"], s["moe"] = MOE.init_moe(init, cfg, lead)
+    else:
+        p["mlp"], s["mlp"] = L.init_mlp(init, cfg, lead=lead)
+    return p, s
+
+
 def init_model(cfg: ModelConfig, seed: int = 0, device=None):
-    """(params, specs) of a dense or MoE model, drawn from ``seed`` on
-    ``device`` (default: the card; ``"meta"`` gives shapes only)."""
+    """(params, specs) of a model of a ported family, drawn from ``seed``
+    on ``device`` (default: the card; ``"meta"`` gives shapes only)."""
     check_family(cfg)
     init = L.Init(resolve_device(device), seed)
     lead = (cfg.num_layers,)
     p, s = {}, {}
     p["emb"], s["emb"] = L.init_embedding(init, cfg)
-    lp, ls = {}, {}
-    lp["ln1"], ls["ln1"] = L.init_norm(init, cfg.norm_kind, cfg.d_model, lead)
-    lp["attn"], ls["attn"] = L.init_attention(init, cfg, lead)
-    lp["ln2"], ls["ln2"] = L.init_norm(init, cfg.norm_kind, cfg.d_model, lead)
-    if cfg.family == "moe":
-        lp["moe"], ls["moe"] = MOE.init_moe(init, cfg, lead)
+    if cfg.family in ("ssm", "hybrid"):
+        init_ssm = M.init_mamba1 if cfg.family == "ssm" else M.init_mamba2
+        lp, ls = {}, {}
+        lp["ln1"], ls["ln1"] = L.init_norm(init, cfg.norm_kind, cfg.d_model,
+                                           lead)
+        lp["mamba"], ls["mamba"] = init_ssm(init, cfg, lead)
     else:
-        lp["mlp"], ls["mlp"] = L.init_mlp(init, cfg, lead=lead)
+        lp, ls = _init_block(init, cfg, lead)
     p["layers"] = lp
     # the stacked (looped, unsharded) layer axis leads every layer spec
     s["layers"] = T.tree_map(lambda sp: (None,) + tuple(sp), ls)
     p["ln_f"], s["ln_f"] = L.init_norm(init, cfg.norm_kind, cfg.d_model)
+    if cfg.family == "hybrid":
+        # ONE attention + MLP block shared by every group, unstacked
+        p["shared"], s["shared"] = _init_block(init, cfg)
     return p, s
 
 
@@ -120,16 +140,55 @@ def _layer_params(params, n: int):
     return [T.unflatten((path, ls[i]) for path, ls in per) for i in range(n)]
 
 
+def _ssm_layer(lp, x, cfg, state=None, return_state=False):
+    """Pre-norm residual Mamba layer: (x + y, the block's new state)."""
+    h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+    apply = M.apply_mamba1 if cfg.ssm_kind == "mamba1" else M.apply_mamba2
+    y, st = apply(lp["mamba"], h, cfg, state=state, return_state=return_state)
+    return x + y, st
+
+
+def _ssm_group(lps, shared, x, cfg, positions):
+    """One hybrid group: ``attn_every`` Mamba-2 layers, then the shared
+    attention + MLP block."""
+    for lp in lps:
+        x, _ = _ssm_layer(lp, x, cfg)
+    return _transformer_layer(shared, x, cfg, positions)[0]
+
+
+def _n_groups(cfg) -> int:
+    n = cfg.num_layers // cfg.attn_every
+    if n * cfg.attn_every != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
+                         f"into groups of attn_every = {cfg.attn_every}")
+    return n
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, recomputed in backward while grad is enabled."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _run_stack(params, cfg, x, positions):
     """Loop over the stacked layers; returns (hidden, aux_losses)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"moe_aux": zero, "moe_z": zero}
-    for lp in _layer_params(params["layers"], cfg.num_layers):
-        if cfg.remat and torch.is_grad_enabled():
-            x, a = checkpoint(_transformer_layer, lp, x, cfg, positions,
-                              use_reentrant=False)
-        else:
-            x, a = _transformer_layer(lp, x, cfg, positions)
+    call = _remat if cfg.remat else (lambda fn, *args: fn(*args))
+    layers = _layer_params(params["layers"], cfg.num_layers)
+    if cfg.family == "ssm":
+        for lp in layers:
+            x = call(_ssm_layer, lp, x, cfg)[0]
+        return x, aux
+    if cfg.family == "hybrid":
+        E = cfg.attn_every
+        for g in range(_n_groups(cfg)):
+            x = call(_ssm_group, layers[g * E:(g + 1) * E], params["shared"],
+                     x, cfg, positions)
+        return x, aux
+    for lp in layers:
+        x, a = call(_transformer_layer, lp, x, cfg, positions)
         aux = {k: aux[k] + a.get(k, 0.0) for k in aux}
     return x, aux
 
@@ -180,18 +239,31 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
                device=None):
-    """Zeroed k/v caches [L, batch, max_len, K, hd] (``device="meta"``:
-    shapes only)."""
+    """The zeroed decode cache (``device="meta"``: shapes only): k/v [L,
+    batch, max_len, K, hd]; per-layer SSM states [L, batch, ...] (conv
+    states in ``dtype``, h in fp32, no time axis); the hybrid's SSM states
+    under "mamba" beside k/v [n_groups, batch, max_len, K, hd]."""
     check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    Lr = cfg.num_layers
+
+    def stacked(state):          # one layer's state -> [L, ...] leaves
+        return {k: torch.zeros((Lr, *t.shape), dtype=t.dtype, device=dev)
+                for k, t in state.items()}
+    if cfg.family == "ssm":
+        return stacked(M.mamba1_state(cfg, batch, dtype, "meta"))
+    kv_shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    kv = lambda n: torch.zeros((n, *kv_shape), dtype=dtype, device=dev)
+    if cfg.family == "hybrid":
+        return {"mamba": stacked(M.mamba2_state(cfg, batch, dtype, "meta")),
+                "k": kv(_n_groups(cfg)), "v": kv(_n_groups(cfg))}
+    return {"k": kv(Lr), "v": kv(Lr)}
 
 
 def grow_cache(cfg: ModelConfig, cache, extra: int):
-    """Extend a prefill cache's time axis (dim 2) by ``extra`` zeroed
-    decode slots; a new cache, the old one is left as it is."""
+    """Extend a prefill cache's time axis (dim 2 of k/v) by ``extra``
+    zeroed decode slots; a new cache, the old one is left as it is. SSM
+    states have no time axis and pass through as they are."""
     if extra <= 0 or not isinstance(cache, dict):
         return cache
     grown = dict(cache)
@@ -204,30 +276,80 @@ def grow_cache(cfg: ModelConfig, cache, extra: int):
     return grown
 
 
+def _cached_block(lp, x, cfg, positions, ck, cv, index: int):
+    """An attention + MLP block's decode step against the k/v cache of
+    one layer (or group), written in place."""
+    h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+    a, _ = L.apply_attention(lp["attn"], h, cfg, positions,
+                             cache={"k": ck, "v": cv}, cache_index=index)
+    x = x + a
+    h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
+    return x + _ffn(lp, h, cfg)[0]
+
+
+def _ssm_step(lp, x, cfg, states: dict, i: int):
+    """Layer i's Mamba decode step; its new states are written into the
+    stacked state leaves ``states`` in place."""
+    x, new = _ssm_layer(lp, x, cfg, state={k: t[i] for k, t in
+                                            states.items()})
+    for k, t in states.items():
+        t[i].copy_(new[k])
+    return x
+
+
 @torch.no_grad()
 def serve_step(params, cfg: ModelConfig, tokens, cache, index: int):
     """One decode step. tokens: [B] int; index: the host int position of
     this token (the cache's current length).
 
-    Writes the step's k/v into ``cache`` in place; returns (logits
-    [B, vocab_padded] fp32, cache). An index at or past the cache's length
-    raises (the reference clamps it onto the last slot)."""
+    Writes the step's k/v and SSM states into ``cache`` in place; returns
+    (logits [B, vocab_padded] fp32, cache). An index at or past the k/v
+    cache's length raises (the reference clamps it onto the last slot);
+    the ssm family has no time axis, so no index bound: a step costs the
+    same at any position."""
     check_family(cfg)
+    if "k" in cache and not 0 <= int(index) < cache["k"].shape[2]:
+        # before any layer writes its state into the cache
+        raise IndexError(f"cache index {index} out of range for a cache "
+                         f"of length {cache['k'].shape[2]}")
     B = tokens.shape[0]
     x = L.embed_tokens(params["emb"], tokens[:, None], ACT_DTYPE)  # [B,1,D]
     positions = torch.full((B, 1), int(index), dtype=torch.int32,
                            device=x.device)
-    for i, lp in enumerate(_layer_params(params["layers"], cfg.num_layers)):
-        h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-        a, _ = L.apply_attention(lp["attn"], h, cfg, positions,
-                                 cache={"k": cache["k"][i],
-                                        "v": cache["v"][i]},
-                                 cache_index=index)
-        x = x + a
-        h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + _ffn(lp, h, cfg)[0]
+    layers = _layer_params(params["layers"], cfg.num_layers)
+    if cfg.family == "ssm":
+        for i, lp in enumerate(layers):
+            x = _ssm_step(lp, x, cfg, cache, i)
+    elif cfg.family == "hybrid":
+        E = cfg.attn_every
+        for g in range(_n_groups(cfg)):
+            for i in range(g * E, (g + 1) * E):
+                x = _ssm_step(layers[i], x, cfg, cache["mamba"], i)
+            x = _cached_block(params["shared"], x, cfg, positions,
+                              cache["k"][g], cache["v"][g], index)
+    else:
+        for i, lp in enumerate(layers):
+            x = _cached_block(lp, x, cfg, positions, cache["k"][i],
+                              cache["v"][i], index)
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
     return L.logits_last(params["emb"], x[:, 0], cfg.vocab_size), cache
+
+
+def _prefill_block(lp, x, cfg, positions, causal: bool):
+    """An attention + MLP block over the prompt: (x, k, v), k/v in
+    ACT_DTYPE for the cache."""
+    B, S, _ = x.shape
+    h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+    q, k, v = L.project_qkv(lp["attn"], h, cfg, positions)
+    a = L.chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    x = x + a.reshape(B, S, -1) @ lp["attn"]["wo"].to(x.dtype)
+    h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
+    return x + _ffn(lp, h, cfg)[0], k.to(ACT_DTYPE), v.to(ACT_DTYPE)
+
+
+def _stack_states(states: list) -> dict:
+    """Per-layer SSM state dicts -> one dict of stacked [L, ...] leaves."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
 
 
 @torch.no_grad()
@@ -237,20 +359,36 @@ def prefill(params, cfg: ModelConfig, batch):
     Returns (logits [B, Vp] for the last position, cache for serve_step at
     max_len = S; an encoder has no decode step and gets no cache)."""
     x, positions, _, _ = _inputs_to_hidden(params, cfg, batch)
-    B, S, _ = x.shape
-    ks, vs = [], []
-    for lp in _layer_params(params["layers"], cfg.num_layers):
-        h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-        q, k, v = L.project_qkv(lp["attn"], h, cfg, positions)
-        a = L.chunked_attention(q, k, v, causal=cfg.causal,
-                                chunk=cfg.attn_chunk)
-        x = x + a.reshape(B, S, -1) @ lp["attn"]["wo"].to(x.dtype)
-        h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-        x = x + _ffn(lp, h, cfg)[0]
-        ks.append(k.to(ACT_DTYPE))
-        vs.append(v.to(ACT_DTYPE))
-    cache = ({} if cfg.family == "encoder"
-             else {"k": torch.stack(ks), "v": torch.stack(vs)})
+    layers = _layer_params(params["layers"], cfg.num_layers)
+    if cfg.family == "ssm":
+        states = []
+        for lp in layers:
+            x, st = _ssm_layer(lp, x, cfg, return_state=True)
+            states.append(st)
+        cache = _stack_states(states)
+    elif cfg.family == "hybrid":
+        E = cfg.attn_every
+        states, ks, vs = [], [], []
+        for g in range(_n_groups(cfg)):
+            for lp in layers[g * E:(g + 1) * E]:
+                x, st = _ssm_layer(lp, x, cfg, return_state=True)
+                states.append(st)
+            # the reference's hybrid prefill runs the shared block causal
+            # with no QKV bias; the hybrid configs have none
+            x, k, v = _prefill_block(params["shared"], x, cfg, positions,
+                                     causal=True)
+            ks.append(k)
+            vs.append(v)
+        cache = {"mamba": _stack_states(states), "k": torch.stack(ks),
+                 "v": torch.stack(vs)}
+    else:
+        ks, vs = [], []
+        for lp in layers:
+            x, k, v = _prefill_block(lp, x, cfg, positions, cfg.causal)
+            ks.append(k)
+            vs.append(v)
+        cache = ({} if cfg.family == "encoder"
+                 else {"k": torch.stack(ks), "v": torch.stack(vs)})
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
     return L.logits_last(params["emb"], x[:, -1], cfg.vocab_size), cache
 

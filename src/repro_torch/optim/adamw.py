@@ -70,13 +70,29 @@ def apply_updates(params, grads, state, cfg: OptConfig):
     c2 = 1.0 - torch.pow(cfg.b2, stepf)
 
     def upd(p, g, m, v):
+        # m' = b1 m + (1 - b1) g, v' = b2 v + (1 - b2) g^2, p' = p - lr
+        # (m' / c1 / (sqrt(v' / c2) + eps) + wd p): each op in place on a
+        # fresh tensor (the same bits as out of place), so at most four
+        # leaf-sized temporaries live at once (a 2.8 GB leaf of zamba2-2.7b)
         g = g.to(torch.float32) * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        step_ = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-        decay = cfg.weight_decay * p.to(torch.float32) if p.ndim >= 2 else 0.0
-        newp = p.to(torch.float32) - lr * (step_ + decay)
-        return newp.to(p.dtype), m, v
+        m = m * cfg.b1
+        m += (1 - cfg.b1) * g
+        sq = torch.square(g)
+        del g
+        sq *= 1 - cfg.b2
+        v = v * cfg.b2
+        v += sq
+        del sq
+        step_ = m / c1
+        den = v / c2
+        den.sqrt_()
+        den += cfg.eps
+        step_ /= den
+        del den
+        step_ += (cfg.weight_decay * p.to(torch.float32) if p.ndim >= 2
+                  else 0.0)
+        step_ *= lr
+        return (p.to(torch.float32) - step_).to(p.dtype), m, v
 
     paths = [path for path, _ in T.flatten(params)]
     out = [upd(p, g, m, v) for p, g, m, v in zip(

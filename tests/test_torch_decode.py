@@ -3,7 +3,8 @@
 ``make_cache`` / ``grow_cache``, ``prefill``, ``serve_step``, the step
 factories, ``cache_pspecs`` and ``launch/serve.py`` (mirrors
 tests/test_models.py's ``test_smoke_decode_consistency`` and
-``test_prefill_then_decode`` for the dense and MoE families).
+``test_prefill_then_decode`` for the dense, MoE, ssm and hybrid
+families; the SSM blocks themselves: tests/test_torch_mamba.py).
 
 The same parameters (the reference's init, carried over by
 ``interop.model_params_from_arrays``) and the same numpy tokens go through
@@ -11,8 +12,9 @@ both packages, activations in float32 on both sides. Tolerances:
 
   * ``decode_attention`` and the cached ``apply_attention``: 1e-5 x the
     reference's largest |value| (the einsums sum in another order);
-  * prefill logits and k/v caches, and every step of ``serve_step``:
-    1e-5 x scale (measured at most 4e-7 relative on the smoke configs);
+  * prefill logits and caches (k/v, conv states, h), and every step of
+    ``serve_step``: 1e-5 x scale (measured at most 4e-7 relative on the
+    dense and MoE smoke configs, 8.8e-7 on the ssm and hybrid ones);
   * decode against the full forward: the reference tests' own bars,
     5e-3 x max(scale, 1) (MoE 2e-2, at capacity_factor 8 so that the full
     forward drops no token);
@@ -32,7 +34,7 @@ from repro.launch import sharding as RSh
 from repro.models import layers as RL
 from repro.models import model as RM
 
-from repro_torch import interop
+from repro_torch import interop, tree as TT
 from repro_torch.configs import registry as TR
 from repro_torch.configs.shapes import SHAPES, ShapeConfig
 from repro_torch.launch import serve as TSv
@@ -44,7 +46,8 @@ from repro_torch.models import model as TM
 
 CPU = "cpu"
 DECODE = [a for a in TR.list_archs()
-          if TR.get_smoke_config(a).family in ("dense", "moe")]
+          if TR.get_smoke_config(a).family in ("dense", "moe", "ssm",
+                                               "hybrid")]
 REL = 1e-5
 
 
@@ -161,22 +164,31 @@ def test_make_and_grow_cache_match_the_reference(arch):
     rcfg, cfg = RR.get_smoke_config(arch), TR.get_smoke_config(arch)
     for kw, tkw in (({}, {}), ({"dtype": jnp.float32},
                                {"dtype": torch.float32})):
-        rc = RM.make_cache(rcfg, 3, 10, **kw)
+        rc = dict(TT.flatten(RM.make_cache(rcfg, 3, 10, **kw)))
         tc = TM.make_cache(cfg, 3, 10, device=CPU, **tkw)
-        assert set(rc) == set(tc) == {"k", "v"}
+        tcf = dict(TT.flatten(tc))
+        assert set(rc) == set(tcf)
         for name in rc:
-            assert tuple(tc[name].shape) == rc[name].shape
-            assert str(tc[name].dtype).replace("torch.", "") == str(
+            assert tuple(tcf[name].shape) == rc[name].shape
+            assert str(tcf[name].dtype).replace("torch.", "") == str(
                 rc[name].dtype)
-            assert not tc[name].any()
-        rg, tg = RM.grow_cache(rcfg, rc, 5), TM.grow_cache(cfg, tc, 5)
-        for name in rc:
-            assert tuple(tg[name].shape) == rg[name].shape
-            assert tg[name].dtype == tc[name].dtype
+            assert not tcf[name].any()
+        rg = dict(TT.flatten(RM.grow_cache(rcfg, RM.make_cache(
+            rcfg, 3, 10, **kw), 5)))
+        tg = TM.grow_cache(cfg, tc, 5)
+        for name, t in TT.flatten(tg):
+            assert tuple(t.shape) == rg[name].shape
+            assert t.dtype == tcf[name].dtype
         assert TM.grow_cache(cfg, tc, 0) is tc
     meta = TSt.cache_abstract(cfg, SHAPES["decode_32k"])
-    assert meta["k"].is_meta and tuple(meta["k"].shape) == (
-        cfg.num_layers, 128, 32_768, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.family == "ssm":     # no time axis: the state is the same size
+        assert meta["h"].is_meta and tuple(meta["h"].shape) == (
+            cfg.num_layers, 128, cfg.d_inner, cfg.ssm_state)
+    else:
+        groups = (cfg.num_layers // cfg.attn_every
+                  if cfg.family == "hybrid" else cfg.num_layers)
+        assert meta["k"].is_meta and tuple(meta["k"].shape) == (
+            groups, 128, 32_768, cfg.num_kv_heads, cfg.head_dim)
 
 
 def test_grow_cache_pads_with_zeros_and_keeps_the_old_cache():
@@ -200,8 +212,10 @@ def test_prefill_and_serve_steps_match_the_reference(arch, f32_acts):
         params, jnp.asarray(toks))
     tlog, tc = TM.prefill(tree, cfg, {"tokens": torch.from_numpy(toks)})
     _close(tlog, rlog, what="prefill logits")
-    for name in ("k", "v"):
-        _close(tc[name], rc[name], what=f"prefill {name}")
+    rflat = dict(TT.flatten(rc))
+    assert set(rflat) == {p for p, _ in TT.flatten(tc)}
+    for name, t in TT.flatten(tc):
+        _close(t, rflat[name], what=f"prefill {name}")
     rc, tc = RM.grow_cache(rcfg, rc, G), TM.grow_cache(cfg, tc, G)
     step = jax.jit(lambda p, t, c, i: RM.serve_step(p, rcfg, t, c, i))
     nxt = _tokens(cfg, (G, B), seed=1)
@@ -211,10 +225,23 @@ def test_prefill_and_serve_steps_match_the_reference(arch, f32_acts):
                                  P + t)
         assert tlog.dtype == torch.float32
         _close(tlog, rlog, what=f"step {t} logits")
-    for name in ("k", "v"):
-        _close(tc[name], rc[name], what=f"cache {name} after {G} steps")
-    with pytest.raises(IndexError, match="out of range"):
-        TM.serve_step(tree, cfg, torch.from_numpy(nxt[0]), tc, P + G)
+    rflat = dict(TT.flatten(rc))
+    for name, t in TT.flatten(tc):
+        _close(t, rflat[name], what=f"cache {name} after {G} steps")
+    if "k" in tc:
+        held = [t.clone() for t in TT.leaves(tc)]
+        with pytest.raises(IndexError, match="out of range"):
+            TM.serve_step(tree, cfg, torch.from_numpy(nxt[0]), tc, P + G)
+        # raised before any layer wrote its state
+        assert all(torch.equal(a, b) for a, b in zip(held, TT.leaves(tc)))
+    else:
+        # the ssm family has no time axis: no bound, and the position
+        # changes nothing
+        a, _ = TM.serve_step(tree, cfg, torch.from_numpy(nxt[0]),
+                             TT.tree_map(torch.clone, tc), P + G)
+        b, _ = TM.serve_step(tree, cfg, torch.from_numpy(nxt[0]),
+                             TT.tree_map(torch.clone, tc), 524_287)
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch", DECODE)
@@ -258,8 +285,14 @@ def test_prefill_then_decode(arch, f32_acts):
     err = float((logits[:, :V] - fb[:, -1, :V]).abs().max())
     scale = float(fb[..., :V].abs().max())
     assert err <= 5e-3 * max(scale, 1.0)
-    assert tuple(cache["k"].shape) == (cfg.num_layers, 2, 8,
-                                       cfg.num_kv_heads, cfg.head_dim)
+    if cfg.family == "ssm":
+        assert tuple(cache["h"].shape) == (cfg.num_layers, 2, cfg.d_inner,
+                                           cfg.ssm_state)
+    else:
+        groups = (cfg.num_layers // cfg.attn_every
+                  if cfg.family == "hybrid" else cfg.num_layers)
+        assert tuple(cache["k"].shape) == (groups, 2, 8, cfg.num_kv_heads,
+                                           cfg.head_dim)
     # the prefill cache feeds serve_step after grow_cache
     cache = TM.grow_cache(cfg, cache, 2)
     nxt = torch.argmax(logits, -1).to(torch.int32)
@@ -324,12 +357,13 @@ def test_prefill_and_serve_step_factories(f32_acts):
     assert cache["k"] is held and bool(held[:, :, 8].any())
     with pytest.raises(NotImplementedError, match="FSDP"):
         TSt.make_serve_step(TR.get_config("qwen2-moe-a2.7b"), shape, mesh)
-    with pytest.raises(NotImplementedError, match="models/mamba.py"):
-        TSt.make_prefill_step(TR.get_smoke_config("falcon-mamba-7b"), mesh)
+    with pytest.raises(NotImplementedError, match="vlm"):
+        TSt.make_prefill_step(TR.get_smoke_config("internvl2-76b"), mesh)
 
 
 # ------------------------------------------------------------ serve.main
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "granite-moe-1b-a400m",
+                                  "falcon-mamba-7b", "zamba2-2.7b"])
 def test_serve_main_on_the_cpu(arch):
     B, P, G = 3, 16, 5
     events = []
@@ -369,9 +403,6 @@ def test_serve_main_prefill_only_and_unserved_families():
     assert out["tokens"].shape == (1, 1) and out["decode_ms"] == []
     with pytest.raises(SystemExit, match="encoder-only"):
         TSv.main(["--device", "cpu", "--smoke", "--arch", "hubert-xlarge"])
-    with pytest.raises(NotImplementedError, match="models/mamba.py"):
-        TSv.main(["--device", "cpu", "--smoke", "--arch",
-                  "falcon-mamba-7b"])
     with pytest.raises(NotImplementedError, match="vlm"):
         TSv.main(["--device", "cpu", "--smoke", "--arch", "internvl2-76b"])
     with pytest.raises(SystemExit):

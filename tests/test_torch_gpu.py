@@ -712,3 +712,80 @@ def test_moe_and_decode_on_card_match_cpu(cuda, arch):
                 a[live].abs().max())
     finally:
         Mod.ACT_DTYPE = old
+
+
+# ---------------------------------------------------- SSM and hybrid
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_ssm_families_on_card_match_cpu(cuda, arch):
+    """The smoke configs of the ssm (Mamba-1) and hybrid (Mamba-2 + the
+    shared attention block) families on the card against the same calls
+    on the CPU, with TF32 off: the forward logits, prefill and 8 serve
+    steps (fixed tokens), in fp32 within 1e-4 x scale and in bf16 within
+    5e-2 x scale (bf16 against fp32 on the CPU: 1.4e-2 at most); for
+    zamba2 one train step on the card with the sampled exchange (every
+    leaf of >= 1024 elements) and the telemetry fold: its loss within
+    rtol 2e-2 of ``loss_fn`` on the CPU, launches (n + 1, n + 2, 1, 0, 0,
+    0) for n sampled leaves. (The CPU side takes no mesh: a CPU mesh over
+    a default group an earlier test made with NCCL has no CPU backend.)"""
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import multisketch_empty
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TEL_SPEC
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+    old_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    old = Mod.ACT_DTYPE
+    cfg = get_smoke_config(arch)
+    params, _ = Mod.init_model(cfg, seed=3, device="cpu")
+    on = lambda t: TT.tree_map(lambda a: a.to(cuda), t)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    V = cfg.vocab_size
+    try:
+        for dt, rel in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+            Mod.ACT_DTYPE = dt
+            out = {}
+            for dev in ("cpu", cuda):
+                p = params if dev == "cpu" else on(params)
+                with torch.no_grad():
+                    full = Mod.forward_logits(p, cfg, {"tokens": toks.to(dev)})
+                logits, cache = Mod.prefill(p, cfg, {"tokens": toks.to(dev)})
+                cache = Mod.grow_cache(cfg, cache, 8)
+                got = [full[:, :, :V], logits[:, :V]]
+                for t in range(8):
+                    logits, cache = Mod.serve_step(
+                        p, cfg, toks[:, t].to(dev), cache, 16 + t)
+                    got.append(logits[:, :V])
+                out[str(dev)] = [g.float().cpu() for g in got]
+            for i, (a, b) in enumerate(zip(out["cpu"], out[str(cuda)])):
+                assert bool(torch.isfinite(b).all()), (dt, i)
+                gap = float((a - b).abs().max())
+                assert gap <= rel * float(a.abs().max()), (dt, i, gap)
+        if cfg.family != "hybrid":
+            return
+        Mod.ACT_DTYPE = old
+        with torch.no_grad():
+            want = float(Mod.loss_fn(params, cfg, {"tokens": toks})[0])
+        mesh = Mesh((1, 1, 1), ("pod", "data", "model"), device=cuda)
+        step, _ = make_train_step(cfg, adamw.OptConfig(), mesh,
+                                  compress=dict(k=256, min_size=1024),
+                                  telemetry=TEL_SPEC)
+        p = on(params)
+        state = {"params": p, "opt": adamw.init_opt_state(p),
+                 "tel": multisketch_empty(TEL_SPEC, device=cuda)}
+        K.reset_launch_counts()
+        state, m = step(state, {"tokens": toks.to(cuda)})
+        n = sum(1 for t in TT.leaves(params) if t.numel() >= 1024)
+        assert tuple(K.launch_counts().values()) == (n + 1, n + 2, 1, 0, 0,
+                                                     0)
+        got = float(m["loss"])
+        assert np.isfinite(got) and abs(got - want) <= 2e-2 * abs(want)
+    finally:
+        Mod.ACT_DTYPE = old
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old_tf32

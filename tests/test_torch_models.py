@@ -3,12 +3,13 @@
 The same parameters (the reference's init, carried over by
 ``interop.model_params_from_arrays``) and the same numpy batches go
 through both packages, activations in float32 on both sides. Tolerances,
-with the gaps measured on the CPU over the 4 dense smoke configs:
+with the gaps measured on the CPU over the 4 dense smoke configs and the
+ssm and hybrid ones (falcon-mamba-smoke, zamba2-smoke):
 
   * loss: rtol 1e-6 (measured at most 8.7e-8 relative);
   * gradients: max |g_ref - g_port| <= 1e-5 x max |g_ref| per leaf
-    (measured at most 1.2e-6: the attention and CE sums run in another
-    order);
+    (measured at most 1.2e-6: the attention, scan and CE sums run in
+    another order);
   * flash attention against a naive softmax: 1e-5 forward, 2e-5
     gradients, the reference's own bars;
   * AdamW: the schedule within 1 ulp-scale rtol 1e-6, new params and
@@ -40,6 +41,10 @@ from repro_torch.optim import adamw as TA
 
 CPU = "cpu"
 DENSE = [a for a in TR.list_archs() if TR.get_smoke_config(a).family == "dense"]
+# the families whose loss and logits mirror test_smoke_forward_and_train_step
+# here (the MoE family's: tests/test_torch_moe.py)
+TRAINED = DENSE + [a for a in TR.list_archs()
+                   if TR.get_smoke_config(a).family in ("ssm", "hybrid")]
 LOSS_RTOL = 1e-6
 GRAD_REL = 1e-5
 
@@ -163,7 +168,7 @@ def test_interop_round_trip_is_exact():
 
 @pytest.mark.parametrize("arch", [a for a in TR.list_archs()
                                   if TR.get_smoke_config(a).family
-                                  not in ("dense", "moe")])
+                                  not in ("dense", "moe", "ssm", "hybrid")])
 def test_other_families_raise_naming_the_roadmap(arch):
     cfg = TR.get_smoke_config(arch)
     with pytest.raises(NotImplementedError,
@@ -172,7 +177,7 @@ def test_other_families_raise_naming_the_roadmap(arch):
 
 
 # ----------------------------------------------------- loss and gradients
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", TRAINED)
 def test_loss_and_grads_match_the_reference(arch, f32_acts):
     rcfg, rparams, _ = _ref_params(arch)
     cfg = TR.get_smoke_config(arch)
@@ -187,7 +192,7 @@ def test_loss_and_grads_match_the_reference(arch, f32_acts):
         assert gap <= GRAD_REL * max(scale, 1e-12), (path, gap, scale)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", TRAINED)
 def test_forward_logits_match_the_reference(arch, f32_acts):
     rcfg, rparams, _ = _ref_params(arch)
     cfg = TR.get_smoke_config(arch)

@@ -418,9 +418,12 @@ def test_sigterm_checkpoints_and_exits_cleanly(tmp_path):
 
 
 def test_train_main_rejects_unported_families():
-    with pytest.raises(NotImplementedError, match="models/mamba.py"):
-        TTr.main(["--device", "cpu", "--smoke", "--arch", "falcon-mamba-7b",
-                  "--steps", "1"])
+    for arch, branch in (("hubert-xlarge", "encoder"),
+                         ("internvl2-76b", "vlm")):
+        with pytest.raises(NotImplementedError,
+                           match=f"the {branch} branch of models/model.py"):
+            TTr.main(["--device", "cpu", "--smoke", "--arch", arch,
+                      "--steps", "1"])
 
 
 def test_train_main_starts_its_own_process_group(tmp_path):
