@@ -150,7 +150,37 @@ Phases (any failure exits non-zero; nothing is caught):
    step: 19 sampled leaves and the telemetry fold; finite losses) and
    ``_sample_leaf`` on the real gradient of ``layers.mamba.wx``
    (707,788,800 rows, F n = 2,123,366,400 < 2^31; the checks and timings
-   of 7a's wg leaf), the train state freed first.
+   of 7a's wg leaf), the train state freed first;
+10. the encoder and vlm families at full width, random weights from
+   seed 0: hubert-xlarge (encoder: 48 bidirectional layers, d_model 1280,
+   16 heads of 80, d_ff 5120, gelu, layernorm, vocab 504 padded to 512;
+   945,277,440 parameters, over stub frame embeddings) and internvl2-76b
+   (vlm: d_model 8192, GQA 64/8 heads of 128, d_ff 28,672, vocab 128,256
+   untied, 256 stub patch embeddings before the text; the depth cut from
+   80 to 8 layers, 8,946,589,696 parameters, 35.8 GB in fp32, since 80
+   take 282 GB and its config is FSDP): (a) hubert ``train.main`` for 4
+   steps at full depth, batch 8 x 1024 frames, mesh 1x1x1, the sampled
+   exchange (k = 256), importance sampling and the telemetry fold, a
+   checkpoint every 2 steps; finite losses, each step's launches the
+   fold's (1, 2, 1) plus one K1 and one K2 for each of its 8 sampled
+   leaves; a resume from step 2 as 7a's; ``_sample_leaf`` on the real
+   gradient of ``layers.mlp.wi`` (314,572,800 rows; the checks and
+   timings of 7a's wg leaf); (b) hubert's inference forward
+   (``make_prefill_step``, no cache) at batch 8 x 1024, profiled, then at
+   batch 1 x 32,768 frames (``prefill_32k``'s length, its batch cut from
+   32; the length cut to the longest multiple of 512 that one profiled
+   layer predicts inside ENCODER_LONG_BUDGET_S), and in fp32 at 2 layers
+   prefill's last-position logits within 5e-3 x max(scale, 1) of
+   forward_logits; (c) internvl2 (8 layers) through ``serve.main`` at
+   batch 8 x [256 patches | 768 tokens], gen 64, decoding from index
+   1,024, with 8a's checks and launches (2, 4, 2, 1, 2, 0); 16 decode
+   steps and one profiled step with its copy kernels' share (the per-call
+   weight casts); fp32 at 2 layers: serve_step from index 256 + t against
+   forward_logits over [patches | tokens] within 5e-3 x max(scale, 1),
+   and 32 greedy picks equal to the full forward's; (d) internvl2-smoke
+   trained 3 steps on the card through ``train.main`` with the exchange,
+   (1, 2, 1, 0, 0, 0) a step, every launch held against its plain
+   version.
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
@@ -163,7 +193,10 @@ keys their times at the exchange's largest leaf; every row's
 serve.main run, K1's and K2's ``moe_exchange_*`` keys their times at
 ``layers.moe.wi``; every row's ``ssm_serve_launches`` are 9a's run and
 ``hybrid_train_launches`` 9d's, K1's and K2's ``hybrid_exchange_*`` keys
-their times at ``layers.mamba.wx``) and, last,
+their times at ``layers.mamba.wx``; every row's ``encoder_train_launches``
+are 10a's first run and ``vlm_serve_launches`` 10c's serve.main run, K1's
+and K2's ``encoder_exchange_*`` keys their times at ``layers.mlp.wi``)
+and, last,
 ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -224,6 +257,15 @@ SSM_ARCH = "falcon-mamba-7b"        # phase 9: the state-space families
 HYBRID_ARCH = "zamba2-2.7b"
 HYBRID_STEP_LAUNCHES = (20, 21, 1, 0, 0, 0)  # 19 sampled leaves + 1 fold
 LONG_500K_LAST = 524_287            # long_500k's last position
+ENCODER_ARCH = "hubert-xlarge"      # phase 10: the encoder and vlm families
+ENCODER_STEPS = 4
+ENCODER_S = 1024                    # frames: ~20 s of audio at 50 Hz
+ENCODER_LONG_S = 32_768             # prefill_32k's length, batch cut to 1
+ENCODER_LONG_BUDGET_S = 60.0        # ... S cut to fit this wall time
+VLM_ARCH = "internvl2-76b"
+VLM_LAYERS = 8                      # depth cut from 80: 35.8 GB in fp32
+VLM_TRAFFIC = ["--batch", "8", "--prompt-len", "768", "--gen", "64"]
+SERVE_RUN_LAUNCHES = (2, 4, 2, 1, 2, 0)  # a serve.main run's telemetry
 
 
 def _fail(msg: str):
@@ -1154,9 +1196,9 @@ def phase_metric(torch, C, K, dev, n: int = CENSUS_N):
     return counts
 
 
-def profiled(torch, fn):
-    """fn() (synchronised) under the profiler: (device idle share, wall ms,
-    device ms, the top device ops as "name ms" text)."""
+def profile_ops(torch, fn):
+    """fn() (synchronised) under the profiler: (wall ms, [(device op, ms)]
+    longest first, the number of device op calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1166,14 +1208,19 @@ def profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ops = sorted(((e.key, e.self_device_time_total / 1e3)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0), key=lambda x: -x[1])
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    ops = sorted(((e.key, e.self_device_time_total / 1e3) for e in dev),
+                 key=lambda x: -x[1])
+    return wall, ops, sum(e.count for e in dev)
+
+
+def profiled(torch, fn):
+    """fn() (synchronised) under the profiler: (device idle share, wall ms,
+    device ms, the top device ops as "name ms" text)."""
+    wall, ops, n = profile_ops(torch, fn)
     dev_ms = sum(t for _, t in ops)
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0)
     top = f"{n} device ops; " + ", ".join(f"{name[:40]} {t:.3f}"
                                           for name, t in ops[:4])
     return max(0.0, 1 - dev_ms / wall), wall, dev_ms, top
@@ -1512,12 +1559,48 @@ def _train_run(torch, K, train, argv):
     return state, rec, tuple(K.launch_counts().values())
 
 
+def _resumed_run(torch, K, train, argv, ck: str, rec, at: int, steps: int,
+                 what: str):
+    """Drop the checkpoint of step ``steps`` from ``ck`` and run ``argv``
+    again with ``--resume``: the restored state must equal the one saved
+    at step ``at`` (every array's crc32, dtype and shape) and the losses
+    of steps at + 1 .. steps those of the first run ``rec`` within
+    RESUME_RTOL. Prints the check; returns the final state."""
+    import shutil
+    from repro_torch.ckpt.manager import CheckpointManager
+    shutil.rmtree(Path(ck) / f"step_{steps:010d}")
+    t0 = time.perf_counter()
+    state, rec2, _ = _train_run(torch, K, train, argv + [
+        "--ckpt-dir", ck, "--resume"])
+    resume_s = time.perf_counter() - t0
+    _, meta = CheckpointManager(ck).read_meta(at)
+    crc = rec2["crc"]
+    _check(crc is not None and set(crc) == set(meta["arrays"]),
+           f"{what}: restored arrays differ from the checkpoint's")
+    for path, info in meta["arrays"].items():
+        _check(crc[path] == (info["crc"], info["dtype"],
+                             tuple(info["shape"])),
+               f"{what}: restored {path} differs from the saved state")
+    after = list(range(at + 1, steps + 1))
+    gaps = [abs(rec2["loss"][s] - rec["loss"][s]) / abs(rec["loss"][s])
+            for s in after]
+    _check(sorted(rec2["loss"]) == after and max(gaps) <= RESUME_RTOL,
+           f"{what}: resumed losses {rec2['loss']} vs {rec['loss']}")
+    print(f"{what} resume from step {at}: restored state equal to the "
+          f"saved one ({len(crc)} arrays, crc32), losses {at + 1}-{steps} "
+          f"{[rec2['loss'][s] for s in after]}, max relative gap "
+          f"{max(gaps):.3g} (<= {RESUME_RTOL}), run {resume_s:.1f} s",
+          flush=True)
+    return state
+
+
 def _leaf_grads(torch, Mod, TT, cfg, params, batch):
     """The gradient tree of the loss at ``params`` (contiguous leaves)."""
     model = Mod.Model(cfg, params)
     loss, _ = model(batch)
     named = list(model.named_parameters())
-    grads = torch.autograd.grad(loss, [p for _, p in named])
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                allow_unused=True, materialize_grads=True)
     return TT.unflatten((n, g.contiguous()) for (n, _), g in zip(named,
                                                                   grads))
 
@@ -1603,7 +1686,6 @@ def phase_train(torch, C, K, dev):
     counts."""
     import shutil
     from repro_torch import tree as TT
-    from repro_torch.ckpt.manager import CheckpointManager
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, Loader, SyntheticCorpus
     from repro_torch.distopt import compression as CP
@@ -1647,29 +1729,8 @@ def phase_train(torch, C, K, dev):
         torch.cuda.empty_cache()
 
         # resume from step 3: drop the newer checkpoint, run steps 4-6 again
-        shutil.rmtree(Path(ck) / f"step_{TRAIN_STEPS:010d}")
-        t0 = time.perf_counter()
-        state, rec2, _ = _train_run(torch, K, train, TRAIN_ARGV + [
-            "--ckpt-dir", ck, "--resume"])
-        resume_s = time.perf_counter() - t0
-        _, meta = CheckpointManager(ck).read_meta(3)
-        crc = rec2["crc"]
-        _check(crc is not None and set(crc) == set(meta["arrays"]),
-               "restored arrays differ from the checkpoint's")
-        for path, info in meta["arrays"].items():
-            _check(crc[path] == (info["crc"], info["dtype"],
-                                 tuple(info["shape"])),
-                   f"restored {path} differs from the saved state")
-        gaps = [abs(rec2["loss"][s] - rec["loss"][s]) / abs(rec["loss"][s])
-                for s in range(4, TRAIN_STEPS + 1)]
-        _check(sorted(rec2["loss"]) == [4, 5, 6] and max(gaps)
-               <= RESUME_RTOL, f"resumed losses {rec2['loss']} vs "
-               f"{rec['loss']}")
-        print(f"train resume from step 3: restored state equal to the "
-              f"saved one ({len(crc)} arrays, crc32), losses 4-6 "
-              f"{[rec2['loss'][s] for s in (4, 5, 6)]}, max relative gap "
-              f"{max(gaps):.3g} (<= {RESUME_RTOL}), run {resume_s:.1f} s",
-              flush=True)
+        state = _resumed_run(torch, K, train, TRAIN_ARGV, ck, rec, 3,
+                             TRAIN_STEPS, "train")
     finally:
         shutil.rmtree(ck, ignore_errors=True)
 
@@ -2506,6 +2567,367 @@ def phase_ssm(torch, K, dev, card: str):
              for name, row in hyb_x.items()})
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the encoder and vlm families
+# ---------------------------------------------------------------------------
+
+def exchange_step_launches(cfg):
+    """A ``train.main --compress`` step's launches: the telemetry fold's
+    (1, 2, 1, 0, 0, 0), which is what a smoke config counts on the CPU
+    (its leaves are all under the exchange's min_size of 65,536), plus
+    one K1 and one K2 launch for each leaf of ``cfg`` the exchange
+    samples. Returns (launches, sampled leaves)."""
+    from repro_torch import tree as TT
+    from repro_torch.models import model as Mod
+    n = sum(1 for t in TT.leaves(Mod.abstract_params(cfg)[0])
+            if t.numel() >= 65536)
+    return (n + 1, n + 2, 1, 0, 0, 0), n
+
+
+@contextlib.contextmanager
+def cut_depth(module, arch: str, layers: int):
+    """Inside the block ``module.get_config(arch)`` gives the config with
+    ``num_layers`` cut to ``layers`` (the entry points read the registry
+    at call time)."""
+    import dataclasses
+    get = module.get_config
+
+    def cut(a):
+        cfg = get(a)
+        return dataclasses.replace(cfg, num_layers=layers) if a == arch \
+            else cfg
+    module.get_config = cut
+    try:
+        yield
+    finally:
+        module.get_config = get
+
+
+def _n_params(TT, cfg) -> int:
+    from repro_torch.models import model as Mod
+    return sum(t.numel() for t in TT.leaves(Mod.abstract_params(cfg)[0]))
+
+
+def _vlm_consistency(torch, Mod, cfg, dev, tol: float = 5e-3):
+    """fp32 activations, batch 2, [frontend_tokens patches | CONSISTENCY_S
+    tokens], both from a seeded generator: prefill over the patches and
+    the first token, then serve_step at index frontend_tokens + t for
+    every text position t (t = 0 decoded again), each against
+    forward_logits within tol x max(scale, 1); then greedy decoding
+    after a prefill of half the tokens, each pick equal to the full
+    forward's argmax over the same prefix. Returns (max step error,
+    prefill error, scale, the greedy picks checked)."""
+    P, S, V = cfg.frontend_tokens, CONSISTENCY_S, cfg.vocab_size
+    old = Mod.ACT_DTYPE
+    Mod.ACT_DTYPE = torch.float32
+    try:
+        params, _ = Mod.init_model(cfg, seed=0, device=dev)
+        g = torch.Generator(device=dev).manual_seed(9)
+        toks = torch.randint(0, V, (2, S), generator=g, device=dev,
+                             dtype=torch.int32)
+        patches = torch.randn((2, P, cfg.d_model), generator=g, device=dev)
+        with torch.no_grad():
+            full = Mod.forward_logits(params, cfg, {"tokens": toks,
+                                                    "patches": patches})
+        last, cache = Mod.prefill(params, cfg, {"tokens": toks[:, :1],
+                                                "patches": patches})
+        perr = float((last[:, :V] - full[:, P, :V]).abs().max())
+        cache = Mod.grow_cache(cfg, cache, S - 1)
+        err = 0.0
+        for t in range(S):
+            logits, cache = Mod.serve_step(params, cfg, toks[:, t], cache,
+                                           P + t)
+            err = max(err, float((logits[:, :V] - full[:, P + t, :V]).abs()
+                                 .max()))
+        scale = float(full[..., :V].abs().max())
+        del full, cache
+        h = S // 2
+        last, cache = Mod.prefill(params, cfg, {"tokens": toks[:, :h],
+                                                "patches": patches})
+        cache = Mod.grow_cache(cfg, cache, h)
+        picks = [torch.argmax(last, -1).to(torch.int32)]
+        for t in range(h - 1):
+            logits, cache = Mod.serve_step(params, cfg, picks[-1], cache,
+                                           P + h + t)
+            picks.append(torch.argmax(logits, -1).to(torch.int32))
+        gen = torch.stack(picks, 1)
+        with torch.no_grad():
+            full = Mod.forward_logits(params, cfg, {
+                "tokens": torch.cat([toks[:, :h], gen[:, :-1]], 1),
+                "patches": patches})
+        want = torch.argmax(full[:, P + h - 1:, :V], -1).to(torch.int32)
+        del params, full, cache
+    finally:
+        Mod.ACT_DTYPE = old
+    _check(np.isfinite(scale) and err <= tol * max(scale, 1.0)
+           and perr <= tol * max(scale, 1.0),
+           f"{cfg.name} fp32 decode consistency: steps {err}, prefill "
+           f"{perr}, scale {scale}, tol {tol}")
+    _check(torch.equal(gen, want), f"{cfg.name}: greedy decode "
+           f"{gen.tolist()} != the full forward's picks {want.tolist()}")
+    return err, perr, scale, gen.numel()
+
+
+def phase_encoder_vlm(torch, K, dev, card: str):
+    """10a-10d (module docstring). Returns (10a's train launches, 10c's
+    serve launches, the encoder exchange's K1/K2 stats at
+    layers.mlp.wi)."""
+    import dataclasses
+    import shutil
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.data.pipeline import DataConfig, Loader, SyntheticCorpus
+    from repro_torch.launch import serve, train
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as Mod
+    import torch.distributed as dist
+
+    # 10a: hubert-xlarge trains at full width and depth, then resumes
+    cfg = get_config(ENCODER_ARCH)
+    want, nleaf = exchange_step_launches(cfg)
+    argv = ["--arch", ENCODER_ARCH, "--steps", str(ENCODER_STEPS), "--batch",
+            "8", "--seq", str(ENCODER_S), "--mesh", "1x1x1", "--compress",
+            "--importance-sampling", "--ckpt-every", "2", "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (ROOT / "build").mkdir(exist_ok=True)
+    ck = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        state, rec, enc_run = _train_run(torch, K, train,
+                                         argv + ["--ckpt-dir", ck])
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = range(1, ENCODER_STEPS + 1)
+        losses = [rec["loss"][s] for s in steps]
+        secs = [rec["sec"][s] for s in steps]
+        _check(all(np.isfinite(losses)), f"{ENCODER_ARCH} losses {losses}")
+        _check(set(rec["steps"]) == {want}, f"{ENCODER_ARCH} launches per "
+               f"step {rec['steps']}, want {want}")
+        print(f"train {ENCODER_ARCH} full width and depth ({cfg.num_layers} "
+              f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}, gelu, layernorm, "
+              f"non-causal, vocab {cfg.vocab_size} padded to "
+              f"{cfg.vocab_padded}; {_n_params(TT, cfg):,} fp32 parameters) "
+              f"({card}), batch 8 x {ENCODER_S} frames, sampled exchange k "
+              f"= 256 at one pod: losses {[round(x, 4) for x in losses]}; "
+              f"step wall s {[round(x, 4) for x in secs]}, p50 "
+              f"{float(np.median(secs)):.4f} (steps 2-4 "
+              f"{float(np.median(secs[1:])):.4f}); run {run_s:.1f} s with "
+              f"2 checkpoints; peak memory {peak:.2f} GiB; launches: the "
+              f"importance build {rec['before']}, each step {want} ({nleaf} "
+              f"sampled leaves + the fold), the run {enc_run}", flush=True)
+        del state
+        torch.cuda.empty_cache()
+        state = _resumed_run(torch, K, train, argv, ck, rec, 2,
+                             ENCODER_STEPS, f"train {ENCODER_ARCH}")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    dist.destroy_process_group()           # train.main's one-rank group
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=ENCODER_S,
+                      global_batch=8, n_docs=20_000)
+    batch = train.make_batch(cfg, Loader(SyntheticCorpus(dcfg), dcfg).batch(
+        ENCODER_STEPS), dcfg, dev)
+    grads = _leaf_grads(torch, Mod, TT, cfg, params, batch)
+    wi = grads["layers"]["mlp"]["wi"].reshape(-1)
+    del grads, params, batch
+    torch.cuda.empty_cache()
+    enc_x = big_leaf_kernels(torch, dev, wi, 0x5EED0020, "encoder exchange "
+                             "at layers.mlp.wi")
+    del wi
+    torch.cuda.empty_cache()
+
+    # 10b: the inference forward ("prefill": no cache), seed-0 weights
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    step, _, csp = St.make_prefill_step(
+        cfg, Mesh((1, 1), ("data", "model"), device=dev),
+        SHAPES["prefill_32k"])
+    _check(csp == {}, f"{ENCODER_ARCH}: prefill cache specs {csp}")
+    g = torch.Generator(device=dev).manual_seed(30)
+
+    def frames(b, s):
+        """The batch input_specs gives the encoder's prefill: frames and
+        labels (which the forward does not read)."""
+        return {"frames": torch.randn((b, s, cfg.d_model), generator=g,
+                                      device=dev).to(torch.bfloat16),
+                "labels": torch.zeros((b, s), dtype=torch.int32,
+                                      device=dev)}
+    box = {}
+    x8 = frames(8, ENCODER_S)
+
+    def fwd8():
+        box["out"] = step(params, x8)
+    fwd8()
+    idle, wall, dev_ms, top = profiled(torch, fwd8)
+    logits, cache = box.pop("out")
+    _check(cache == {} and tuple(logits.shape) == (8, cfg.vocab_padded)
+           and bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+           f"{ENCODER_ARCH} forward at 8 x {ENCODER_S}")
+    print(f"{ENCODER_ARCH} inference forward (make_prefill_step, no cache) "
+          f"at batch 8 x {ENCODER_S} ({card}): wall {wall:.3f} ms, device "
+          f"{dev_ms:.3f} ms, idle share {idle:.3f}; top {top}", flush=True)
+    # one layer at prefill_32k's length first: it sets the length to run
+    one = dataclasses.replace(cfg, num_layers=1)
+    p1 = {**params, "layers": TT.tree_map(lambda t: t[:1], params["layers"])}
+    x1 = frames(1, ENCODER_LONG_S)
+
+    def fwd1():
+        box["out"] = Mod.prefill(p1, one, x1)
+    fwd1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd1()
+    torch.cuda.synchronize()
+    layer_s = time.perf_counter() - t0
+    idle1, wall1, dev1, top1 = profiled(torch, fwd1)
+    S = ENCODER_LONG_S
+    while (S > cfg.attn_chunk and cfg.num_layers * layer_s
+           * (S / ENCODER_LONG_S) ** 2 > ENCODER_LONG_BUDGET_S):
+        S -= cfg.attn_chunk
+    del x1
+    xl = frames(1, S)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    logits, cache = step(params, xl)
+    end.record()
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    _check(cache == {} and bool(torch.isfinite(
+        logits[:, :cfg.vocab_size]).all()), f"{ENCODER_ARCH} forward at {S}")
+    print(f"{ENCODER_ARCH} inference forward at batch 1 x {S} frames "
+          f"(prefill_32k's {ENCODER_LONG_S} at batch 32, the batch cut to 1"
+          f"{'' if S == ENCODER_LONG_S else ' and the length to fit ' f'{ENCODER_LONG_BUDGET_S:g} s'}): wall {long_s:.3f} s, "
+          f"CUDA-event span {start.elapsed_time(end):.3f} ms; one layer at "
+          f"{ENCODER_LONG_S}: wall {layer_s * 1e3:.3f} ms unprofiled, "
+          f"profiled wall {wall1:.3f} ms, device {dev1:.3f} ms, idle share "
+          f"{idle1:.3f}; top {top1}", flush=True)
+    del xl, logits, p1, box
+    two = dataclasses.replace(cfg, num_layers=2)
+    p2 = {**params, "layers": TT.tree_map(lambda t: t[:2], params["layers"])}
+    old = Mod.ACT_DTYPE
+    Mod.ACT_DTYPE = torch.float32
+    try:
+        x2 = frames(2, ENCODER_S)
+        with torch.no_grad():
+            full = Mod.forward_logits(p2, two, x2)
+        last, _ = Mod.prefill(p2, two, x2)
+    finally:
+        Mod.ACT_DTYPE = old
+    V = cfg.vocab_size
+    perr = float((last[:, :V] - full[:, -1, :V]).abs().max())
+    scale = float(full[..., :V].abs().max())
+    _check(np.isfinite(scale) and perr <= 5e-3 * max(scale, 1.0),
+           f"{ENCODER_ARCH} fp32 forward: last position {perr}, scale "
+           f"{scale}")
+    print(f"{ENCODER_ARCH} fp32 at 2 layers of the full width (batch 2 x "
+          f"{ENCODER_S}): prefill's last-position logits vs forward_logits "
+          f"{perr:.3g}, scale {scale:.3g} (bar "
+          f"{5e-3 * max(scale, 1.0):.3g})", flush=True)
+    del params, p2, full, last, x2
+    torch.cuda.empty_cache()
+
+    # 10c: internvl2-76b served at full width, depth cut to VLM_LAYERS
+    vcfg = get_config(VLM_ARCH)
+    cut = dataclasses.replace(vcfg, num_layers=VLM_LAYERS)
+    traffic = dict(zip(VLM_TRAFFIC[::2], VLM_TRAFFIC[1::2]))
+    vb, pl, gl = (int(traffic[k]) for k in ("--batch", "--prompt-len",
+                                             "--gen"))
+    P = vcfg.frontend_tokens
+    with cut_depth(serve, VLM_ARCH, VLM_LAYERS):
+        out, deltas, vlm_run, vpeak, vwall = _serve_run(
+            torch, K, dev, VLM_ARCH, VLM_TRAFFIC)
+    _check(vlm_run == SERVE_RUN_LAUNCHES, f"{VLM_ARCH} serve launches "
+           f"{vlm_run}, want {SERVE_RUN_LAUNCHES}")
+    dms = out["decode_ms"]
+    print(f"serve {VLM_ARCH} full width ({VLM_LAYERS} of {vcfg.num_layers} "
+          f"layers: {_n_params(TT, cut):,} fp32 parameters, d_model "
+          f"{vcfg.d_model}, {vcfg.num_heads}/{vcfg.num_kv_heads} heads of "
+          f"{vcfg.head_dim}, d_ff {vcfg.d_ff}, vocab {vcfg.vocab_size}) "
+          f"({card}), batch {vb} x [{P} patches | {pl} tokens], gen {gl} "
+          f"from index {P + pl}: "
+          f"prefill {out['prefill_ms']:.3f} ms, decode "
+          f"{float(np.median(dms)):.3f} ms/token p50 (mean "
+          f"{float(np.mean(dms)):.3f}, max {max(dms):.3f}), peak memory "
+          f"{vpeak:.2f} GiB, run {vwall:.1f} s; launches: absorb "
+          f"{deltas['absorbed']}, query {deltas['queried']}, request-shape "
+          f"search {deltas['clustered']}, the run {vlm_run}", flush=True)
+    del out
+    torch.cuda.empty_cache()
+    params, _ = Mod.init_model(cut, seed=0, device=dev)
+    T = P + pl + gl
+    ms, cache, tok = _decode_steps(torch, Mod, cut, params, dev, vb, T, 16,
+                                   31)
+    wall, ops, n = profile_ops(torch, lambda: Mod.serve_step(
+        params, cut, tok, cache, T - 1))
+    dev_ms = sum(t for _, t in ops)
+    copy_ms = sum(t for name, t in ops if "copy" in name.lower())
+    n_layers = sum(t.numel() for p, t in TT.flatten(params)
+                   if p.startswith("layers."))
+    cast_b, _ = bound(6 * n_layers, 0)
+    print(f"serve {VLM_ARCH} decode ({VLM_LAYERS} layers, batch {vb}, cache "
+          f"{T}): {ms:.3f} ms/step over 16 steps; one step profiled: wall "
+          f"{wall:.3f} ms, device {dev_ms:.3f} ms, idle share "
+          f"{max(0.0, 1 - dev_ms / wall):.3f}, {n} device ops; copy kernels "
+          f"(the per-call fp32 -> bf16 weight casts and the cache writes) "
+          f"{copy_ms:.3f} ms, {copy_ms / dev_ms:.3f} of the device time "
+          f"(the casts' {6 * n_layers / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:g}"
+          f" TB/s: {cast_b:.3f} ms); top "
+          f"{', '.join(f'{k[:40]} {t:.3f}' for k, t in ops[:4])}",
+          flush=True)
+    del params, cache, tok
+    torch.cuda.empty_cache()
+    two = dataclasses.replace(vcfg, num_layers=2)
+    err, perr, scale, picks = _vlm_consistency(torch, Mod, two, dev)
+    print(f"serve {VLM_ARCH} fp32 decode consistency at 2 layers of the full "
+          f"width ({_n_params(TT, two):,} parameters; batch 2 x "
+          f"[{P} patches | {CONSISTENCY_S} tokens], serve_step from index "
+          f"{P}): max "
+          f"|serve_step - forward_logits| {err:.3g}, prefill {perr:.3g}, "
+          f"logit scale {scale:.3g} (bar {5e-3 * max(scale, 1.0):.3g}); "
+          f"{picks} greedy picks equal to the full forward's", flush=True)
+    torch.cuda.empty_cache()
+
+    # 10d: internvl2-smoke trains 3 steps on the card with the exchange
+    scfg = get_smoke_config(VLM_ARCH)
+    swant, _ = exchange_step_launches(scfg)
+    sargv = ["--arch", VLM_ARCH, "--smoke", "--steps", "3", "--batch", "8",
+             "--seq", "128", "--mesh", "1x1x1", "--compress",
+             "--importance-sampling", "--log-every", "1"]
+    with recorded_launches(torch) as calls:
+        state, rec, srun = _train_run(torch, K, train, sargv)
+    dist.destroy_process_group()
+    losses = [rec["loss"][s] for s in (1, 2, 3)]
+    _check(all(np.isfinite(losses)), f"{scfg.name} losses {losses}")
+    _check(set(rec["steps"]) == {swant}, f"{scfg.name} launches per step "
+           f"{rec['steps']}, want {swant}")
+    recorded = tuple(sum(1 for name, _, _ in calls if name == k)
+                     for k in K.COUNTED)
+    _check(recorded == srun, f"{scfg.name}: recorded launches {recorded}, "
+           f"counted {srun}")
+    errs = check_path_launches(torch, calls, f"{scfg.name} train")
+    print(f"train {scfg.name} on the card, batch 8 x [{scfg.frontend_tokens} "
+          f"patches | {128 - scfg.frontend_tokens} tokens], sampled exchange "
+          f"at one pod: losses "
+          f"{[round(x, 4) for x in losses]}; launches each step {swant} "
+          f"(the fold: every smoke leaf is under the exchange's 65,536), "
+          f"the run {srun}, each held against its plain version (max abs "
+          f"err: {', '.join(f'{k} {v:.3g}' for k, v in errs.items())})",
+          flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return (dict(zip(K.COUNTED, enc_run)), dict(zip(K.COUNTED, vlm_run)),
+            {name: {f"encoder_exchange_{key}": v for key, v in row.items()}
+             for name, row in enc_x.items()})
+
+
 def member_triples(torch, sk):
     """A sketch's member slots as a sorted list of (key, weight, prob)."""
     m = sk.member & sk.valid
@@ -2558,6 +2980,7 @@ def main() -> int:
     phase_train_multiprocess(torch)
     serve_counts, moe_stats, moe_counts = phase_serve(torch, K, dev, card)
     ssm_counts, hybrid_counts, hybrid_stats = phase_ssm(torch, K, dev, card)
+    enc_counts, vlm_counts, enc_stats = phase_encoder_vlm(torch, K, dev, card)
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),
@@ -2580,7 +3003,10 @@ def main() -> int:
                      "serve_launches": serve_counts[name],
                      **hybrid_stats.get(name, {}),
                      "ssm_serve_launches": ssm_counts[name],
-                     "hybrid_train_launches": hybrid_counts[name]})
+                     "hybrid_train_launches": hybrid_counts[name],
+                     **enc_stats.get(name, {}),
+                     "encoder_train_launches": enc_counts[name],
+                     "vlm_serve_launches": vlm_counts[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,17 @@ multi-tenant ``EnginePool`` (K1-K3 at absorb, K4 at query), and the
 request shapes through ``ClusterEngine`` and ``local_search`` (K5).
 
 Runs on the card unless ``--device cpu``. Serves the dense, MoE, ssm
-(falcon-mamba: per-layer conv and SSM states, no KV cache) and hybrid
-(zamba2: SSM states and the shared attention block's KV cache) families;
-an encoder has no decode step and exits, a vlm raises naming what it
-waits for.
+(falcon-mamba: per-layer conv and SSM states, no KV cache), hybrid
+(zamba2: SSM states and the shared attention block's KV cache) and vlm
+families; an encoder has no decode step and exits. A vlm's prompt is
+``frontend_tokens`` stub patch embeddings (standard normal from
+``--seed``) before ``--prompt-len`` text tokens, and the chunked
+attention of its prefill needs ``frontend_tokens + prompt_len`` to be at
+most ``attn_chunk`` or a multiple of it. Its cache holds the patches
+first, so decode step t runs at index ``frontend_tokens + prompt_len +
+t`` (the reference's serve.py decodes from ``prompt_len``, inside the
+prompt's slots). The request telemetry counts ``prompt_len + gen`` tokens
+per request, as the reference's does.
 """
 from __future__ import annotations
 
@@ -97,15 +104,27 @@ def main(argv=None, callback=None):
     if cfg.family == "encoder":
         raise SystemExit("encoder-only arch has no decode step")
     Mod.check_family(cfg)
+    P = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    S = P + args.prompt_len              # the prefill's positions
+    if P and S > cfg.attn_chunk and S % cfg.attn_chunk:
+        raise ValueError(
+            f"{cfg.name}: frontend_tokens + prompt_len = {P} + "
+            f"{args.prompt_len} = {S} must be at most attn_chunk = "
+            f"{cfg.attn_chunk} or a multiple of it")
     dev = resolve_device(args.device)
     params, _ = Mod.init_model(cfg, seed=args.seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": prompts}
+    if P:
+        batch["patches"] = torch.randn(
+            (args.batch, P, cfg.d_model), generator=gen, device=dev).to(
+                torch.bfloat16)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = Mod.prefill(params, cfg, {"tokens": prompts})
+    logits, cache = Mod.prefill(params, cfg, batch)
     cache = Mod.grow_cache(cfg, cache, args.gen)  # room for decode steps
     tok = torch.argmax(logits, -1).to(torch.int32)
     _sync(dev)
@@ -126,8 +145,7 @@ def main(argv=None, callback=None):
             stamps.append(time.perf_counter())
     stamp()
     for t in range(args.gen - 1):
-        logits, cache = Mod.serve_step(params, cfg, tok, cache,
-                                       args.prompt_len + t)
+        logits, cache = Mod.serve_step(params, cfg, tok, cache, S + t)
         tok = torch.argmax(logits, -1).to(torch.int32)
         outs.append(tok)
         stamp()

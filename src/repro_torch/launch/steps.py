@@ -31,11 +31,22 @@ from repro_torch.optim import adamw
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     """The batch of (arch x shape) as meta-device tensors: the full
-    sequence for train/prefill shapes, one token per row for decode."""
+    sequence for train/prefill shapes (an encoder's frames and labels; a
+    vlm's text after its ``frontend_tokens`` patches, S in all), one token
+    per row for decode."""
     Mod.check_family(cfg)
     B, S = shape.global_batch, shape.seq_len
-    dims = (B, S) if shape.kind in ("train", "prefill") else (B,)
-    return {"tokens": torch.empty(dims, dtype=torch.int32, device="meta")}
+    meta = lambda dims, dtype: torch.empty(dims, dtype=dtype, device="meta")
+    if shape.kind not in ("train", "prefill"):
+        return {"tokens": meta((B,), torch.int32)}
+    if cfg.family == "encoder":
+        return {"frames": meta((B, S, cfg.d_model), torch.bfloat16),
+                "labels": meta((B, S), torch.int32)}
+    if cfg.family == "vlm":
+        P = cfg.frontend_tokens
+        return {"tokens": meta((B, S - P), torch.int32),
+                "patches": meta((B, P, cfg.d_model), torch.bfloat16)}
+    return {"tokens": meta((B, S), torch.int32)}
 
 
 def cache_abstract(cfg: ModelConfig, shape: ShapeConfig):
@@ -101,7 +112,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
         model = Mod.Model(cfg, params)
         loss, metrics = model(batch)
         named = list(model.named_parameters())
-        grads = torch.autograd.grad(loss, [p for _, p in named])
+        # an encoder's token embedding is unused: its gradient is zeros,
+        # as jax.grad gives it
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True,
+                                    materialize_grads=True)
         # a leaf's gradient may come back strided (the tied embedding's):
         # the collectives and the exchange take contiguous leaves
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -183,17 +198,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
 
 def make_prefill_step(cfg: ModelConfig, mesh,
                       shape: Optional[ShapeConfig] = None):
-    """Returns (step, param pspecs, cache pspecs: None without ``shape``);
-    ``step(params, batch) -> (last-position logits, cache)``
-    (``Mod.prefill``)."""
+    """Returns (step, param pspecs, cache pspecs: None without ``shape``,
+    {} for an encoder); ``step(params, batch) -> (last-position logits,
+    cache)`` (``Mod.prefill``; an encoder's is its inference forward and
+    gives the cache {})."""
     _check_placement(cfg)
     p, specs = Mod.abstract_params(cfg)
     psp = Sh.param_pspecs(specs, p, mesh)
 
     def step_fn(params, batch):
         return Mod.prefill(params, cfg, batch)
-    cache = (None if shape is None else
-             Sh.cache_pspecs(cache_abstract(cfg, shape), cfg, mesh))
+    if shape is None:
+        cache = None
+    elif cfg.family == "encoder":
+        cache = {}
+    else:
+        cache = Sh.cache_pspecs(cache_abstract(cfg, shape), cfg, mesh)
     return step_fn, psp, cache
 
 

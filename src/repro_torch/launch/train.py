@@ -54,9 +54,29 @@ def parse_mesh(spec: str, device=None) -> Mesh:
     return Mesh(dims, AXES[len(dims)], device=device)
 
 
+def _stub_embeddings(shape, seed: int, device):
+    """Standard normal bf16 embeddings of a stub frontend, the same for
+    every call with the same seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device).to(
+        torch.bfloat16)
+
+
 def make_batch(cfg, raw, dcfg, device):
-    """The loader's host batch -> the model's inputs on ``device``."""
-    return {"tokens": torch.from_numpy(raw["tokens"]).to(device)}
+    """The loader's host batch -> the model's inputs on ``device``. An
+    encoder gets stub frames (seed 0, the same every step) and the tokens
+    as labels; a vlm stub patches (seed 1) before its first
+    ``max(S - frontend_tokens, 8)`` tokens."""
+    toks = torch.from_numpy(raw["tokens"]).to(device)
+    B, S = toks.shape
+    if cfg.family == "encoder":
+        return {"frames": _stub_embeddings((B, S, cfg.d_model), 0, device),
+                "labels": toks % cfg.vocab_size}
+    if cfg.family == "vlm":
+        P = cfg.frontend_tokens
+        return {"tokens": toks[:, :max(S - P, 8)],
+                "patches": _stub_embeddings((B, P, cfg.d_model), 1, device)}
+    return {"tokens": toks}
 
 
 def build_args(argv=None):
@@ -100,7 +120,6 @@ def main(argv=None, callback=None):
                                 init_method=args.dist_url, rank=args.rank,
                                 world_size=args.world_size)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    Mod.check_family(cfg)
     mesh = parse_mesh(args.mesh, device=dev)
     dev = mesh.device
     opt_cfg = adamw.OptConfig(peak_lr=args.lr,

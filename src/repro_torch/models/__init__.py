@@ -1,3 +1,4 @@
 """Model substrate of the port: ``config`` (the shape dataclass),
 ``layers`` (norms, RoPE, flash attention, MLPs, embedding, chunked CE) and
-``model`` (the dense family's init, forward and loss)."""
+``model`` (init, forward, loss and decode of all six families), with
+``moe`` and ``mamba`` (the MoE and state-space blocks)."""

@@ -1,15 +1,19 @@
-"""Model assembly: the dense, MoE, SSM and hybrid families.
+"""Model assembly for all six families.
 
-Port of the dense, MoE, ``ssm`` (Mamba-1) and ``hybrid`` (Mamba-2 with a
-shared attention block) parts of ``repro/models/model.py``:
+Port of ``repro/models/model.py``: the dense, MoE, ``ssm`` (Mamba-1),
+``hybrid`` (Mamba-2 with a shared attention block), ``encoder``
+(bidirectional, over stub frame embeddings) and ``vlm`` (a decoder over
+``[patches | text]``, the patch embeddings a stub frontend) families:
   init_model(cfg, seed, device) -> (params, specs)  (specs: logical axes)
   loss_fn(params, cfg, batch)    -> (loss, metrics)  (training forward)
   forward_logits(params, cfg, batch) -> [B, S, V]   (small models / tests)
   make_cache(cfg, batch, max_len) -> decode cache: {"k", "v"} [L,B,T,K,hd]
-      (dense, MoE); {"conv", "h"} per layer (ssm); {"mamba": {...}, "k",
-      "v"} with k/v [n_groups, B, T, K, hd] (hybrid)
+      (dense, MoE, vlm); {"conv", "h"} per layer (ssm); {"mamba": {...},
+      "k", "v"} with k/v [n_groups, B, T, K, hd] (hybrid); an encoder
+      has no decode step and raises
   grow_cache(cfg, cache, extra)  -> the cache with ``extra`` more slots
-  prefill(params, cfg, batch)    -> (last-position logits, cache)
+  prefill(params, cfg, batch)    -> (last-position logits, cache); an
+      encoder's is its inference forward and gives the cache {}
   serve_step(params, cfg, tokens, cache, index) -> (logits [B, V], cache)
   Model(cfg, params)             the same tree held as nn.Parameters
 
@@ -32,7 +36,12 @@ reference's do.
 
 ``serve_step`` writes the step's k/v, conv states and h into the cache it
 is given and returns that same cache (the reference's serve step donates
-its cache); a caller that still needs the old cache clones it first.
+its cache); a caller that still needs the old cache clones it first. A
+vlm's cache holds the patches first, so its text decodes from index
+``frontend_tokens + prompt length``.
+
+An encoder's tree keeps the reference's token embedding ``emb.tok``,
+which its frames bypass: its gradient is zero.
 """
 from __future__ import annotations
 
@@ -49,19 +58,19 @@ from .config import ModelConfig
 
 ACT_DTYPE = torch.bfloat16
 
-# families whose layers are not ported yet -> what ports them
-_NOT_PORTED = {
-    "encoder": "the encoder branch of models/model.py",
-    "vlm": "the vlm branch of models/model.py",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm")
 
 
 def check_family(cfg: ModelConfig):
-    """Raise for a family whose layers the port does not have yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; "
-            f"it waits for {_NOT_PORTED.get(cfg.family, 'its layers')}")
+    """Raise for a family name the model code does not know."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                         f"known: {FAMILIES}")
+
+
+def _check_decodes(cfg: ModelConfig):
+    if cfg.family == "encoder":
+        raise ValueError(f"{cfg.name}: an encoder has no decode step")
 
 
 # ---------------------------------------------------------------------------
@@ -82,8 +91,8 @@ def _init_block(init, cfg, lead=()):
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None):
-    """(params, specs) of a model of a ported family, drawn from ``seed``
-    on ``device`` (default: the card; ``"meta"`` gives shapes only)."""
+    """(params, specs) of a model, drawn from ``seed`` on ``device``
+    (default: the card; ``"meta"`` gives shapes only)."""
     check_family(cfg)
     init = L.Init(resolve_device(device), seed)
     lead = (cfg.num_layers,)
@@ -194,17 +203,38 @@ def _run_stack(params, cfg, x, positions):
 
 
 def _inputs_to_hidden(params, cfg, batch):
-    """Embed tokens -> (hidden [B,S,D], positions, labels, mask)."""
+    """Embed the family's inputs -> (hidden [B,S,D], positions, labels,
+    mask). An encoder takes stub frame embeddings ``frames`` [B,S,D] and
+    its ``labels`` as given; a vlm prepends stub patch embeddings
+    ``patches`` [B,P,D] to its text, with next-token labels over the
+    combined sequence and the loss on text positions only (its
+    ``loss_mask`` is ignored, as the reference ignores it)."""
     check_family(cfg)
+    if cfg.family == "encoder":
+        x = batch["frames"].to(ACT_DTYPE)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        return (x, positions, batch["labels"],
+                torch.ones((B, S), dtype=torch.bool, device=x.device))
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
     x = L.embed_tokens(params["emb"], tokens, ACT_DTYPE)
+    text = torch.ones((B, S), dtype=torch.bool, device=dev)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(ACT_DTYPE)
+        P = patches.shape[1]
+        x = torch.cat([patches, x], dim=1)
+        tokens = torch.cat([torch.zeros((B, P), dtype=tokens.dtype,
+                                        device=dev), tokens], dim=1)
+        text = torch.cat([torch.zeros((B, P), dtype=torch.bool, device=dev),
+                          text], dim=1)
+        S += P
     positions = torch.arange(S, device=dev).expand(B, S)
     pad = torch.zeros((B, 1), dtype=tokens.dtype, device=dev)
     labels = torch.cat([tokens[:, 1:], pad], dim=1)
-    mask = (torch.arange(S, device=dev) < S - 1)[None, :].expand(B, S)
-    if "loss_mask" in batch:
+    mask = text & (torch.arange(S, device=dev) < S - 1)[None, :]
+    if "loss_mask" in batch and cfg.family != "vlm":
         mask = mask & batch["loss_mask"].to(torch.bool)
     return x, positions, labels, mask
 
@@ -242,8 +272,10 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
     """The zeroed decode cache (``device="meta"``: shapes only): k/v [L,
     batch, max_len, K, hd]; per-layer SSM states [L, batch, ...] (conv
     states in ``dtype``, h in fp32, no time axis); the hybrid's SSM states
-    under "mamba" beside k/v [n_groups, batch, max_len, K, hd]."""
+    under "mamba" beside k/v [n_groups, batch, max_len, K, hd]. An
+    encoder has none and raises."""
     check_family(cfg)
+    _check_decodes(cfg)
     dev = resolve_device(device)
     Lr = cfg.num_layers
 
@@ -306,8 +338,9 @@ def serve_step(params, cfg: ModelConfig, tokens, cache, index: int):
     (logits [B, vocab_padded] fp32, cache). An index at or past the k/v
     cache's length raises (the reference clamps it onto the last slot);
     the ssm family has no time axis, so no index bound: a step costs the
-    same at any position."""
+    same at any position. An encoder has no decode step and raises."""
     check_family(cfg)
+    _check_decodes(cfg)
     if "k" in cache and not 0 <= int(index) < cache["k"].shape[2]:
         # before any layer writes its state into the cache
         raise IndexError(f"cache index {index} out of range for a cache "

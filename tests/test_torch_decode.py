@@ -357,8 +357,17 @@ def test_prefill_and_serve_step_factories(f32_acts):
     assert cache["k"] is held and bool(held[:, :, 8].any())
     with pytest.raises(NotImplementedError, match="FSDP"):
         TSt.make_serve_step(TR.get_config("qwen2-moe-a2.7b"), shape, mesh)
-    with pytest.raises(NotImplementedError, match="vlm"):
-        TSt.make_prefill_step(TR.get_smoke_config("internvl2-76b"), mesh)
+    vcfg = TR.get_smoke_config("internvl2-76b")
+    vpre, _, vcsp = TSt.make_prefill_step(vcfg, mesh, ShapeConfig(
+        "p", 16, 2, "prefill"))
+    assert vcsp == {"k": (None, "data", None, None, "model"),
+                    "v": (None, "data", None, None, "model")}
+    vtree, _ = TM.init_model(vcfg, device=CPU)
+    vbatch = {"tokens": torch.from_numpy(_tokens(vcfg, (2, 8))),
+              "patches": torch.ones((2, 8, vcfg.d_model))}
+    vlogits, vcache = vpre(vtree, vbatch)
+    assert vcache["k"].shape == (2, 2, 16, 2, 16)
+    assert torch.equal(vlogits, TM.prefill(vtree, vcfg, vbatch)[0])
 
 
 # ------------------------------------------------------------ serve.main
@@ -403,7 +412,8 @@ def test_serve_main_prefill_only_and_unserved_families():
     assert out["tokens"].shape == (1, 1) and out["decode_ms"] == []
     with pytest.raises(SystemExit, match="encoder-only"):
         TSv.main(["--device", "cpu", "--smoke", "--arch", "hubert-xlarge"])
-    with pytest.raises(NotImplementedError, match="vlm"):
-        TSv.main(["--device", "cpu", "--smoke", "--arch", "internvl2-76b"])
+    out = TSv.main(["--device", "cpu", "--smoke", "--arch", "internvl2-76b",
+                    "--batch", "1", "--prompt-len", "8", "--gen", "3"])
+    assert out["tokens"].shape == (1, 3) and len(out["decode_ms"]) == 2
     with pytest.raises(SystemExit):
         TSv.main(["--device", "cpu", "--smoke", "--gen", "0"])

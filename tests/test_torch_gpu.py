@@ -789,3 +789,141 @@ def test_ssm_families_on_card_match_cpu(cuda, arch):
         Mod.ACT_DTYPE = old
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = old_tf32
+
+
+# ------------------------------------------------------ encoder and vlm
+class _Recorder:
+    """A kernel wrapper that records its calls, inputs and outputs copied
+    at the call. Its ``launches`` is the wrapped function's, which the
+    kernel modules count through the module attribute this replaces."""
+
+    def __init__(self, fn, name, calls):
+        self._fn, self._name, self._calls = fn, name, calls
+
+    def __call__(self, *a, **kw):
+        inputs = _copied((a, kw))
+        out = self._fn(*a, **kw)
+        self._calls.append((self._name, inputs, _copied(out)))
+        return out
+
+    @property
+    def launches(self):
+        return self._fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self._fn.launches = value
+
+
+def _copied(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_copied(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_copied(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _copied(v) for k, v in x.items()}
+    return x
+
+
+def _record_path(monkeypatch):
+    """Every call of the kernel wrappers the train and serve paths look up
+    at call time, as (wrapper name, (args, kwargs), outputs)."""
+    calls = []
+    for mod, attr in ((ks, "fused_seeds_fvals"), (ks, "fused_seeds"),
+                      (kbs, "batched_bottomk_select"),
+                      (kc, "batched_bottomk_select"),
+                      (kc, "retention_priority"),
+                      (kq, "segment_query_slab"),
+                      (ksc, "service_cost_slab")):
+        monkeypatch.setattr(mod, attr, _Recorder(getattr(mod, attr), attr,
+                                                 calls))
+    return calls
+
+
+def _assert_calls_match_plain(calls):
+    """Each recorded launch against its kernel's plain version on the
+    recorded inputs, at the tolerances above."""
+    for i, (name, (a, kw), got) in enumerate(calls):
+        what = f"{name} call {i}"
+        if name == "fused_seeds_fvals":
+            sp, fp = ks.fused_seeds_fvals_plain(*a, **kw)
+            assert_ulp(got[0], sp, 2, what)
+            assert_ulp(got[1], fp, 2, what)
+        elif name == "fused_seeds":
+            assert_ulp(got, ks.fused_seeds_fvals_plain(
+                *a, **kw, want_fvals=False)[0], 2, what)
+        elif name == "batched_bottomk_select":
+            want = kbs.batched_bottomk_select_plain(*a, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), what
+        elif name == "retention_priority":
+            assert torch.equal(got, kc.retention_priority_plain(*a, **kw)), \
+                what
+        elif name == "segment_query_slab":
+            assert torch.allclose(got, kq.segment_query_slab_plain(*a, **kw),
+                                  rtol=EST_RTOL, atol=0.0), what
+        else:
+            _assert_k5_close(got, ksc.service_cost_slab_plain(*a, **kw),
+                             a[:3], a[3])
+
+
+def test_encoder_train_step_on_card(cuda, monkeypatch):
+    """One train step of hubert-smoke (bidirectional encoder over stub
+    frames) on the card with the sampled exchange (every leaf of >= 1024
+    elements, the unused token embedding's zero gradient among them) and
+    the telemetry fold: launches (n + 1, n + 2, 1, 0, 0, 0) for n sampled
+    leaves, each held against its plain version; the loss within rtol
+    2e-2 of ``loss_fn`` on the CPU (bf16 on both)."""
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core import multisketch_empty
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import TEL_SPEC
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+    cfg = get_smoke_config("hubert-xlarge")
+    params, _ = Mod.init_model(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(5)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+        (4, 32, cfg.d_model)).astype(np.float32)).to(torch.bfloat16),
+             "labels": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (4, 32)).astype(np.int32))}
+    with torch.no_grad():
+        want = float(Mod.loss_fn(params, cfg, batch)[0])
+    mesh = Mesh((1, 1, 1), ("pod", "data", "model"), device=cuda)
+    step, _ = make_train_step(cfg, adamw.OptConfig(), mesh,
+                              compress=dict(k=256, min_size=1024),
+                              telemetry=TEL_SPEC)
+    p = TT.tree_map(lambda a: a.to(cuda), params)
+    state = {"params": p, "opt": adamw.init_opt_state(p),
+             "tel": multisketch_empty(TEL_SPEC, device=cuda)}
+    calls = _record_path(monkeypatch)
+    K.reset_launch_counts()
+    state, m = step(state, {k: v.to(cuda) for k, v in batch.items()})
+    n = sum(1 for t in TT.leaves(params) if t.numel() >= 1024)
+    assert tuple(K.launch_counts().values()) == (n + 1, n + 2, 1, 0, 0, 0)
+    assert len(calls) == 2 * n + 4
+    _assert_calls_match_plain(calls)
+    got = float(m["loss"])
+    assert np.isfinite(got) and abs(got - want) <= 2e-2 * abs(want)
+    assert int(state["opt"]["step"]) == 1
+
+
+def test_vlm_serve_main_on_card(cuda, monkeypatch):
+    """serve.main --arch internvl2-76b --smoke on the card: 8 patches + 8
+    prompt tokens, 4 generated from index 16; the request telemetry's
+    launches (K1-K3 at absorb, K4 at query, K5 in the search) counted and
+    each held against its plain version; the pool's estimates exact."""
+    from repro_torch.launch import serve
+    calls = _record_path(monkeypatch)
+    K.reset_launch_counts()
+    out = serve.main(["--arch", "internvl2-76b", "--smoke", "--batch", "2",
+                      "--prompt-len", "8", "--gen", "4"])
+    counts = tuple(K.launch_counts().values())
+    assert min(counts[:5]) > 0 and counts[5] == 0 and counts[3] == 1
+    assert len(calls) == sum(counts)
+    _assert_calls_match_plain(calls)
+    assert out["tokens"].shape == (2, 4) and out["tokens"].max() < 128
+    assert out["stats"][0, 0] == 2 * (8 + 4) and out["stats"][1, 0] == 2

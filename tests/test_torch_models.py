@@ -17,7 +17,7 @@ ssm and hybrid ones (falcon-mamba-smoke, zamba2-smoke):
     the bias corrections apart by up to an ulp);
   * shape tables and parameter counts: exact.
 """
-import re
+import dataclasses
 
 import numpy as np
 import pytest
@@ -170,10 +170,23 @@ def test_interop_round_trip_is_exact():
                                   if TR.get_smoke_config(a).family
                                   not in ("dense", "moe", "ssm", "hybrid")])
 def test_other_families_raise_naming_the_roadmap(arch):
+    """The encoder and vlm families, the last two ported, raise no more:
+    their trees and specs equal the reference's and cross ``interop``
+    exactly both ways; only an unknown family name raises."""
+    rcfg, rparams, rspecs = _ref_params(arch)
     cfg = TR.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(TM._NOT_PORTED[cfg.family])):
-        TM.init_model(cfg, device=CPU)
+    tparams, tspecs = TM.init_model(cfg, seed=0, device=CPU)
+    assert [(p, tuple(t.shape)) for p, t in TT.flatten(tparams)] == [
+        (p, r.shape) for p, r in TT.flatten(rparams)]
+    assert dict(TT.flatten(tspecs)) == dict(TT.flatten(jax.tree.map(
+        lambda s: s, rspecs, is_leaf=lambda s: isinstance(s, tuple))))
+    tree = interop.model_params_from_arrays(cfg, rparams, device=CPU)
+    back = interop.model_params_to_arrays(TM.Model(cfg, tree).tree())
+    for (p, a), (q, b) in zip(TT.flatten(rparams), TT.flatten(back)):
+        assert p == q and a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="unknown family"):
+        TM.init_model(dataclasses.replace(cfg, family="rnn"), device=CPU)
 
 
 # ----------------------------------------------------- loss and gradients
