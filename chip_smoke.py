@@ -181,6 +181,34 @@ Phases (any failure exits non-zero; nothing is caught):
    trained 3 steps on the card through ``train.main`` with the exchange,
    (1, 2, 1, 0, 0, 0) a step, every launch held against its plain
    version.
+11. placement over gloo processes on the one card (``--place-worker``
+   processes; fp32 activations), each held against a one-process run of
+   the port with the same seed in this process: (a) FSDP, qwen2-moe-a2.7b
+   at full width cut to 2 layers (its config sets ``fsdp``; each step
+   gathers every layer through the host), mesh (1, 2, 1) in 2 processes:
+   3 train steps at batch 8 x 128 (every step's loss and grad norm rtol
+   1e-5; the first step's gradient within 1e-5 of each leaf's largest at
+   4,096 sampled elements a leaf, read from the ranks' blocks; the MoE's
+   top-k choices compared call by call, the flips printed with the least
+   gate gap; after each step the sampled params rtol 1e-4 / atol 1e-6
+   wherever the gradient agreed within GRAD_AGREE in every step so far,
+   HELD_MIN of each leaf before the first routing flip: see
+   ``_hold_train``),
+   each rank's state bytes at most
+   half of the one-process state plus the leaves the rule keeps whole,
+   peak memory beside the one-process run's; then ``make_prefill_step``
+   at batch 4 x 128 and 8 greedy ``make_serve_step`` steps (logits rtol
+   1e-5, greedy tokens equal); (b) tensor parallelism and the per-shard
+   exchange, qwen2-1.5b at 2 layers, mesh (2, 1, 2) in 4 processes: 3
+   compressed steps (k = 256, min_size 65,536), the first loss rtol 1e-5
+   of the one-process run's, every K1 (seeds only) and K2 launch held
+   against its plain version at the call, one block's exchange against
+   the formula over the gathered slabs, K1 and K2 timed at the largest
+   block (emb.tok's [75,968, 1,536]); (c) gemma-2b and phi3-mini-3.8b at
+   full width and depth, mesh (1, 1, 2) in 2 processes: prefill at batch
+   4 x 128 and 8 greedy decode steps (gemma's cache placed on hd, the
+   gathered case; phi3's on S, sequence-parallel), logits rtol 1e-5 and
+   greedy tokens equal.
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
@@ -197,7 +225,9 @@ their times at ``layers.mamba.wx``; every row's ``encoder_train_launches``
 are 10a's first run and ``vlm_serve_launches`` 10c's serve.main run, K1's
 and K2's ``encoder_exchange_*`` keys their times at ``layers.mlp.wi``)
 and, last,
-``{"ok": true, ...}``.
+``{"ok": true, ...}``. Every row's ``placement_launches`` are 11b's run
+summed over its 4 ranks; K1's and K2's ``placement_block_*`` keys their
+times at 11b's largest block.
 """
 from __future__ import annotations
 
@@ -213,6 +243,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+PLACE_WORKER_CMD = [sys.executable, str(Path(__file__).resolve())]
 CHUNK = 1 << 20                 # rows per absorbed chunk
 N_CHUNKS = 16                   # chunks per tenant
 SHARDS = 4
@@ -2928,6 +2959,624 @@ def phase_encoder_vlm(torch, K, dev, card: str):
              for name, row in enc_x.items()})
 
 
+# ---------------------------------------------------------------------------
+# phase 11: FSDP and tensor-parallel placement, gloo processes on one card
+# ---------------------------------------------------------------------------
+
+PLACE_FSDP_ARCH = "qwen2-moe-a2.7b"  # 11a: its config sets fsdp
+PLACE_TP_ARCH = "qwen2-1.5b"         # 11b
+PLACE_CARD_ARCHS = ("gemma-2b", "phi3-mini-3.8b")   # 11c, full depth
+# depth cut from 24 (11a) and 28 (11b): 11a's FSDP gathers every layer
+# through the host in each step (~0.75 GB/s of gloo on the card's host),
+# so its depth is what its time scales with
+PLACE_LAYERS = {"qwen2-moe-a2.7b": 2, "qwen2-1.5b": 2}
+PLACE_STEPS = 3
+PLACE_SERVE = (4, 128, 8)            # batch, prompt, decode steps
+PLACE_SAMPLES = 4096                 # param elements held per leaf (11a)
+# a sampled param is held after a step where its gradient agreed with the
+# one-process run's within GRAD_AGREE (relative) in that step and every
+# earlier one: the ranks' fp32 sums run in another order, so a gradient
+# that is rounding noise (its element's true gradient ~0) differs between
+# the runs, and Adam's normalised step moves such an element by ~lr either
+# way; the params' differences then feed the next step's gradients. In the
+# steps before the first routing flip every leaf must have HELD_MIN of its
+# samples held
+GRAD_AGREE = 1e-3
+HELD_MIN = 0.9
+PLACE_TIMEOUT_S = 600
+PLACE_MIN_SIZE = 65_536              # 11b's exchange: sampled blocks
+WORKER_DEVICE = "cuda"
+AX3 = ("pod", "data", "model")
+# 11b's largest per-shard block: the tied emb.tok split on vocab over
+# model 2 (151,936 / 2 rows x 1,536)
+PLACE_BLOCK = (75_968, 1_536)
+
+
+def _place_cfg(arch: str):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    if arch in PLACE_LAYERS:
+        cfg = dataclasses.replace(cfg, num_layers=PLACE_LAYERS[arch])
+    return cfg
+
+
+def _place_batches(torch, cfg, dev):
+    """The train batches (8 x 128 tokens, seeded) and the serving prompt
+    (PLACE_SERVE's batch x prompt), on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tok = lambda *s: torch.randint(0, cfg.vocab_size, s, generator=gen,
+                                   device=dev, dtype=torch.int32)
+    B, S, _ = PLACE_SERVE
+    return [{"tokens": tok(8, 128)} for _ in range(PLACE_STEPS)], tok(B, S)
+
+
+def _sample_idx(torch, n: int, dev):
+    gen = torch.Generator(device=dev).manual_seed(n % (1 << 31))
+    return torch.randint(0, n, (min(PLACE_SAMPLES, n),), generator=gen,
+                         device=dev)
+
+
+def _state_bytes(TT, state) -> int:
+    return sum(x.numel() * x.element_size() for x in TT.leaves(
+        {"p": state["params"], "m": state["opt"]["m"],
+         "v": state["opt"]["v"]}))
+
+
+def _block_samples(torch, tree, specs, shapes, mesh, dev) -> dict:
+    """{leaf: (values, mask)} at each leaf's PLACE_SAMPLES sampled flat
+    positions of the WHOLE leaf (``shapes``), read from this rank's block
+    (``tree``, placed by ``specs``): ``mask`` marks the positions the
+    block holds, ``values`` is 0 elsewhere. Every sample lies in some
+    rank's block (a leaf no axis splits: in every rank's)."""
+    from repro_torch import tree as TT
+    from repro_torch.launch import sharding as Sh
+    out = {}
+    for (p, x), (_, spec), (_, whole) in zip(
+            TT.flatten(tree), TT.flatten(specs), TT.flatten(shapes)):
+        dims = tuple(whole.shape)
+        flat = _sample_idx(torch, whole.numel(), dev)
+        mask = torch.ones_like(flat, dtype=torch.bool)
+        local = torch.zeros_like(flat)
+        for d, size in enumerate(dims):
+            stride = int(np.prod(dims[d + 1:], dtype=np.int64))
+            coord = (flat // stride) % size
+            if d < len(spec) and spec[d] is not None:
+                n, i = Sh._split(mesh, spec[d])
+                mask &= coord // (size // n) == i
+                coord = coord - i * (size // n)
+            local = local * x.shape[d] + torch.where(mask, coord, 0)
+        vals = x.reshape(-1)[torch.where(mask, local, 0)]
+        out[p] = (torch.where(mask, vals, 0.0).cpu(), mask.cpu())
+    return out
+
+
+def _merge_samples(ranks, key) -> dict:
+    """The whole leaves' samples from the ranks' ``_block_samples``."""
+    import torch
+    torch_where = torch.where
+    out = {}
+    for r in ranks:
+        for p, (v, m) in r[key].items():
+            out[p] = torch_where(m, v, out[p]) if p in out else v.clone()
+    return out
+
+
+def _place_train(torch, cfg, mesh, dev, compress=None):
+    """PLACE_STEPS placed train steps from seed 0 (fp32 activations):
+    {losses, grad_norm, step seconds, state bytes, the bytes of the leaves
+    the rule leaves whole over data, peak GiB, block samples
+    (``_block_samples``) of each step's gradient ("grads") and of the
+    params after each step ("params"), and each step's routing ("routes":
+    per MoE call, this rank's top-k choices [B, S, k] and each token's
+    least gap between adjacent gates of its k + 1 largest)}."""
+    from repro_torch import tree as TT
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model as Mod
+    from repro_torch.models import moe as MoE
+    from repro_torch.optim import adamw
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    shapes = Mod.abstract_params(cfg)[0]
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1,
+                          total_steps=PLACE_STEPS)
+    grads_seen, routes = [], []
+
+    def grad_hook(grads, params_, step):
+        grads_seen.append(_block_samples(torch, grads, specs["params"],
+                                         shapes, mesh, dev))
+        return grads
+    route = MoE.route
+
+    def recording_route(p, x, cfg_):
+        r = route(p, x, cfg_)
+        top = torch.sort(r.gates.detach(), dim=-1, descending=True,
+                         stable=True).values[..., :cfg_.moe_top_k + 1]
+        routes[-1].append((r.topi.cpu(),
+                           (top[..., :-1] - top[..., 1:]).amin(-1).cpu()))
+        return r
+    step_fn, specs = St.make_train_step(cfg, opt, mesh, compress=compress,
+                                        grad_transform=grad_hook)
+    state = Sh.place({"params": params, "opt": adamw.init_opt_state(params)},
+                     specs, mesh)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batches, _ = _place_batches(torch, cfg, dev)
+    out = {"losses": [], "grad_norm": [], "sec": [], "params": [],
+           "bytes": _state_bytes(TT, state),
+           # the leaves the rule leaves whole over data (params, m, v)
+           "kept": 3 * sum(x.numel() * x.element_size() for x, s in zip(
+               TT.leaves(state["params"]), TT.leaves(specs["params"]))
+               if "data" not in s)}
+    MoE.route = recording_route
+    try:
+        for b in batches:
+            routes.append([])
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            torch.cuda.synchronize()
+            out["sec"].append(round(time.perf_counter() - t0, 3))
+            out["losses"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["params"].append(_block_samples(
+                torch, state["params"], specs["params"], shapes, mesh, dev))
+    finally:
+        MoE.route = route
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["grads"] = grads_seen
+    out["routes"] = routes
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _place_serve(torch, cfg, mesh, dev, params=None):
+    """make_prefill_step at PLACE_SERVE's batch x prompt, grow_placed_cache
+    and greedy make_serve_step steps (fp32 activations): {prefill logits,
+    per-step logits and tokens (host), cache pspecs, ms, peak GiB}."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model as Mod
+    B, S, G = PLACE_SERVE
+    if params is None:
+        params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    pre, psp, csp = St.make_prefill_step(cfg, mesh,
+                                         ShapeConfig("p", S, B, "prefill"))
+    placed = Sh.place(params, psp, mesh)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, prompt = _place_batches(torch, cfg, dev)
+    t0 = time.perf_counter()
+    logits, cache = pre(placed, {"tokens": prompt})
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    cache, csp2 = St.grow_placed_cache(cfg, cache, csp, G, mesh)
+    serve, _, csp3 = St.make_serve_step(cfg, ShapeConfig("d", S + G, B,
+                                                         "decode"), mesh)
+    _check(csp2 == csp3, f"{cfg.name}: grown cache specs {csp2} != {csp3}")
+    rec = {"prefill": logits.cpu(), "logits": [], "tokens": [],
+           "specs": (csp["k"], csp2["k"]), "prefill_ms": pre_ms,
+           "step_ms": []}
+    tok = logits.argmax(-1).to(torch.int32)
+    for t in range(G):
+        rec["tokens"].append(tok.cpu())
+        t0 = time.perf_counter()
+        logits, cache = serve(placed, tok, cache, S + t)
+        torch.cuda.synchronize()
+        rec["step_ms"].append(round((time.perf_counter() - t0) * 1e3, 2))
+        rec["logits"].append(logits.cpu())
+        tok = logits.argmax(-1).to(torch.int32)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del placed, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|, padded vocab rows (-1e30 on both) left
+    out."""
+    live = b > -1e29
+    gap = (a - b).abs().where(live, 0.0).max()
+    return float(gap / max(float(b.abs().where(live, 0.0).max()), 1e-12))
+
+
+def _hold_serve(torch, got, want, what: str):
+    """Placed serving against its one-process twin: prefill and step
+    logits within rtol 1e-5 of the twin's largest, greedy tokens equal."""
+    err = _rel(got["prefill"], want["prefill"])
+    for t, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+        err = max(err, _rel(a, b))
+        _check(torch.equal(got["tokens"][t], want["tokens"][t]),
+               f"{what}: greedy tokens differ at step {t}")
+    _check(err <= 1e-5, f"{what}: logits {err:.3g} from the one-process "
+           f"run")
+    return err
+
+
+def _routing_flips(torch, ranks, twin) -> list:
+    """Per step, per MoE call (the forward's layers, then the recompute's):
+    (tokens whose ordered top-k differ between the ranks' rows and the
+    one-process run's, the least gap between adjacent gates of a token's
+    k + 1 largest in the one-process run)."""
+    out = []
+    for s, calls in enumerate(twin["routes"]):
+        out.append([(int((torch.cat([r["routes"][s][i][0] for r in ranks])
+                          != topi).any(-1).sum()), float(gap.min()))
+                    for i, (topi, gap) in enumerate(calls)])
+    return out
+
+
+def _hold_train(torch, ranks, twin, what: str):
+    """Placed steps (``ranks``' results, rank order = data order) against
+    the one-process ``twin``: every step's loss and grad norm rtol 1e-5;
+    the first step's gradient within 1e-5 of its leaf's largest at every
+    sample; the MoE's routing compared call by call; after each step the
+    sampled params rtol 1e-4 / atol 1e-6 wherever the gradient agreed
+    within GRAD_AGREE in every step so far (the key bias aside: its
+    gradient is rounding noise, as tests/test_torch_train.py notes), with
+    HELD_MIN of each leaf held in the steps before the first routing flip
+    (a flipped token moves its rows of the gradient). Returns the numbers
+    printed."""
+    got = ranks[0]
+    steps = len(twin["losses"])
+    flips = _routing_flips(torch, ranks, twin)
+    first_flip = next((s for s, calls in enumerate(flips)
+                       if any(n for n, _ in calls)), steps)
+    grads = [_merge_samples([{"g": r["grads"][s]} for r in ranks], "g")
+             for s in range(steps)]
+    params = [_merge_samples([{"p": r["params"][s]} for r in ranks], "p")
+              for s in range(steps)]
+    ggap = [0.0] * steps
+    pgap, least, fails = [0.0] * steps, [1.0] * steps, []
+    agree = {}
+    for s in range(steps):
+        for p, (want, _) in twin["grads"][s].items():
+            have = grads[s][p]
+            top = max(float(want.abs().max()), 1e-30)
+            ggap[s] = max(ggap[s], float((have - want).abs().max()) / top)
+            agree[p] = agree.get(p, True) & (
+                (have - want).abs() <= GRAD_AGREE * want.abs())
+            if p == "layers.attn.bk":
+                continue
+            w = twin["params"][s][p][0]
+            off = (params[s][p] - w).abs() / (1e-4 * w.abs() + 1e-6)
+            ok = agree[p]
+            share = float(ok.float().mean())
+            least[s] = min(least[s], share)
+            if bool(ok.any()):
+                pgap[s] = max(pgap[s], float(off[ok].max()))
+            if s < first_flip and share < HELD_MIN:
+                fails.append(f"{p} after step {s + 1}: {share:.3f} held")
+    print(f"{what}: losses {got['losses']} vs one process "
+          f"{twin['losses']}, grad norms {got['grad_norm']} vs "
+          f"{twin['grad_norm']}; routing flips per step and MoE call "
+          f"{[[n for n, _ in c] for c in flips]} (least top-k gate gap "
+          f"{[min((g for _, g in c), default=0.0) for c in flips]}); "
+          f"gradient gap per step {[float(f'{g:.3g}') for g in ggap]} of "
+          f"each leaf's largest; params held after each step at "
+          f"{[round(x, 4) for x in least]} of a leaf's samples at least "
+          f"(the key bias aside), largest gap "
+          f"{[float(f'{g:.3g}') for g in pgap]} of rtol 1e-4 + atol 1e-6",
+          flush=True)
+    for key in ("losses", "grad_norm"):
+        np.testing.assert_allclose(got[key], twin[key], rtol=1e-5,
+                                   err_msg=f"{what}: {key}")
+    _check(ggap[0] <= 1e-5, f"{what}: first-step gradient {ggap[0]:.3g} "
+           f"of the leaf's largest from the one-process run")
+    _check(max(pgap) <= 1.0, f"{what}: held params off the one-process "
+           f"run ({max(pgap):.3g} of the bar)")
+    _check(not fails, f"{what}: too few params held before the first "
+           f"routing flip: {fails}")
+    return flips, first_flip, ggap, least, pgap
+
+
+def _spawn_place(sub: str, world: int) -> list:
+    """Run ``sub`` in ``world`` gloo processes on the card; their
+    results (rank order)."""
+    import pickle
+    import socket
+    import torch
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix=f"chip_smoke_11{sub}_")
+    procs = [subprocess.Popen(
+        [*PLACE_WORKER_CMD, "--place-worker",
+         sub, str(r), str(world), port, out], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PLACE_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        _check(p.returncode == 0,
+               f"placement worker 11{sub}/{r} failed:\n{log[-4000:]}")
+    return [pickle.load(open(Path(out) / f"rank{r}.pkl", "rb"))
+            for r in range(world)]
+
+
+def _place_worker(sub: str, rank: int, world: int, port: str,
+                  out: str) -> int:
+    """One rank of 11a / 11b / 11c (started by ``phase_placement``)."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    # the ranks share the host's cores (gloo stages through them)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    import repro_torch.kernels as K
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as Mod
+    dev = torch.device(WORKER_DEVICE)
+    Mod.ACT_DTYPE = torch.float32
+    res = {"rank": rank}
+    if sub == "a":
+        cfg = _place_cfg(PLACE_FSDP_ARCH)
+        mesh = Mesh((1, 2, 1), AX3, device=dev)
+        res["train"] = _place_train(torch, cfg, mesh, dev)
+        res["serve"] = _place_serve(torch, cfg, mesh, dev)
+    elif sub == "b":
+        res.update(_place_exchange_worker(torch, K, dev))
+    else:
+        mesh = Mesh((1, 1, 2), AX3, device=dev)
+        for arch in PLACE_CARD_ARCHS:
+            from repro_torch.configs.registry import get_config
+            res[arch] = _place_serve(torch, get_config(arch), mesh, dev)
+    if rank != 0:          # rank 0 carries the gathered logits
+        for key in ("serve", *PLACE_CARD_ARCHS):
+            if key in res:
+                res[key] = {k: v for k, v in res[key].items()
+                            if k not in ("logits", "prefill")}
+    with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _place_exchange_worker(torch, K, dev):
+    """11b's rank: PLACE_STEPS compressed steps at (pod 2, data 1, model
+    2), every K1 (seeds only) and K2 launch checked against its plain
+    version at the call; then one leaf's exchange against the formula."""
+    from repro_torch import tree as TT
+    from repro_torch.distopt import compression as CP
+    from repro_torch.kernels import blockselect as kbs
+    from repro_torch.kernels import seeds as ks
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+    cfg = _place_cfg(PLACE_TP_ARCH)
+    mesh = Mesh((2, 1, 2), AX3, device=dev)
+    errs = {"seeds": 0.0, "blockselect": 0.0}
+    checked = {"seeds": 0, "blockselect": 0}
+    blocks = []
+    k1, k2 = ks.fused_seeds, kbs.batched_bottomk_select
+
+    def seeds_checked(*a, **kw):
+        got = k1(*a, **kw)
+        want = ks.fused_seeds_fvals_plain(*a, **kw, want_fvals=False)[0]
+        _check(ulps(got, want) <= 2, "11b: K1 launch beyond 2 ulp of plain")
+        errs["seeds"] = max(errs["seeds"], max_abs(got, want))
+        checked["seeds"] += 1
+        blocks.append(a[0].shape[0])
+        return got
+
+    def select_checked(*a, **kw):
+        got = k2(*a, **kw)
+        want = kbs.batched_bottomk_select_plain(*a, **kw)
+        _check(all(torch.equal(x, y) for x, y in zip(got, want)),
+               "11b: K2 launch differs from plain")
+        errs["blockselect"] = max(errs["blockselect"],
+                                  max_abs(got[0], want[0]))
+        checked["blockselect"] += 1
+        del want
+        torch.cuda.empty_cache()
+        return got
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1,
+                          total_steps=PLACE_STEPS)
+    step_fn, specs = St.make_train_step(cfg, opt, mesh, compress=dict(
+        k=256, min_size=PLACE_MIN_SIZE))
+    state = Sh.place({"params": params, "opt": adamw.init_opt_state(params)},
+                     specs, mesh)
+    del params
+    batches, _ = _place_batches(torch, cfg, dev)
+    ks.fused_seeds, kbs.batched_bottomk_select = (seeds_checked,
+                                                  select_checked)
+    K.reset_launch_counts()
+    losses, secs = [], []
+    try:
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            torch.cuda.synchronize()
+            secs.append(round(time.perf_counter() - t0, 3))
+            losses.append(float(m["loss"]))
+    finally:
+        ks.fused_seeds, kbs.batched_bottomk_select = k1, k2
+    counts = K.launch_counts()
+    # one block's exchange against the formula over the gathered slabs
+    Mod.ACT_DTYPE = torch.float32
+    sh = St.P.Shards(mesh, specs["params"])
+    model = Mod.Model(cfg, state["params"], sh)
+    loss, _ = model({k: v[Sh.batch_slice(mesh, 8)]
+                     for k, v in batches[0].items()})
+    named = list(model.named_parameters())
+    grads = TT.unflatten((n, g.contiguous()) for (n, _), g in zip(
+        named, torch.autograd.grad(loss, [p for _, p in named])))
+    leaf = "layers.mlp.wi"
+    own = dict(TT.flatten(grads))[leaf].reshape(-1).cpu().numpy()
+    out_tree, wires = CP.exchange_grads(mesh, grads, 3, k=256,
+                                        min_size=PLACE_MIN_SIZE,
+                                        return_wires=True)
+    got = dict(TT.flatten(out_tree))[leaf].reshape(-1).cpu().numpy()
+    w = wires[leaf].cpu().numpy()
+    est = []
+    for p in range(2):
+        e = np.zeros(own.shape, np.float32)
+        np.add.at(e, np.maximum(w[p, 0], 0), np.where(
+            w[p, 3] != 0, w[p, 1].view(np.float32) / np.maximum(
+                w[p, 2].view(np.float32), np.float32(1e-30)),
+            np.float32(0)).astype(np.float32))
+        est.append(e)
+    pod = mesh.coords["pod"]
+    want = (((np.zeros_like(own) + est[0]) + est[1]) - est[pod] + own) \
+        / np.float32(2)
+    ex = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                      np.float32(1e-30))))
+    return {"losses": losses, "sec": secs, "counts": counts,
+            "checked": checked, "errs": errs, "blocks": sorted(set(blocks)),
+            "exchange_leaf": (leaf, own.shape[0]), "exchange_max_rel": ex,
+            "coords": mesh.coords}
+
+
+def phase_placement(torch, K, dev, card: str):
+    """11a FSDP at (1, 2, 1) in 2 processes, 11b tensor parallelism and
+    the per-shard exchange at (2, 1, 2) in 4, 11c the card gap (gemma-2b,
+    phi3-mini-3.8b at full depth) at (1, 1, 2) in 2; each held against a
+    one-process run with the same seed on the card. Returns (K1/K2 stats
+    at the largest block, the path's launches summed over 11b's ranks)."""
+    from repro_torch import tree as TT
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as Mod
+    old = Mod.ACT_DTYPE
+    Mod.ACT_DTYPE = torch.float32
+    one = Mesh((1, 1, 1), AX3, device=dev)
+    try:
+        # --- 11a: FSDP at full width, 2 layers --------------------------
+        t0 = time.perf_counter()
+        ranks = _spawn_place("a", 2)
+        wall = time.perf_counter() - t0
+        cfg = _place_cfg(PLACE_FSDP_ARCH)
+        twin_train = _place_train(torch, cfg, one, dev)
+        twin_serve = _place_serve(torch, cfg, one, dev)
+        flips, first_flip, ggap, least, pgap = _hold_train(
+            torch, [r["train"] for r in ranks], twin_train, "11a")
+        for r in ranks:
+            _check(r["train"]["losses"] == ranks[0]["train"]["losses"],
+                   "11a: ranks' losses differ")
+            kept = r["train"]["kept"]
+            _check(r["train"]["bytes"] <= (twin_train["bytes"] - kept) / 2
+                   + kept, f"11a: rank {r['rank']} holds "
+                   f"{r['train']['bytes']} of {twin_train['bytes']} bytes "
+                   f"({kept} whole)")
+        serr = _hold_serve(torch, ranks[0]["serve"], twin_serve, "11a")
+        print(f"11a FSDP {PLACE_FSDP_ARCH} at {cfg.num_layers} layer(s) "
+              f"({_n_params(TT, cfg):,} params), mesh (1, 2, 1), 2 gloo "
+              f"processes on {card}: losses {ranks[0]['train']['losses']} "
+              f"vs one process {twin_train['losses']} (rtol 1e-5), grad "
+              f"norms as well, the first step's gradient within "
+              f"{ggap[0]:.3g} of each leaf's largest, routing flips "
+              f"{[sum(n for n, _ in c) for c in flips]} a step, params "
+              f"held within {max(pgap):.3g} of their bar where the "
+              f"gradient agreed ({min(least[:first_flip] or [1.0]):.3f} "
+              f"of a leaf at least before the first flip); state bytes "
+              f"per rank {[r['train']['bytes'] for r in ranks]} vs "
+              f"{twin_train['bytes']}, train peak GiB "
+              f"{[round(r['train']['peak_gib'], 2) for r in ranks]} vs "
+              f"{twin_train['peak_gib']:.2f}, step s "
+              f"{ranks[0]['train']['sec']} vs {twin_train['sec']}; "
+              f"prefill {PLACE_SERVE[0]} x {PLACE_SERVE[1]} + "
+              f"{PLACE_SERVE[2]} decode steps: logits within {serr:.3g}, "
+              f"greedy tokens equal, prefill ms "
+              f"{ranks[0]['serve']['prefill_ms']:.1f} vs "
+              f"{twin_serve['prefill_ms']:.1f}, decode ms/step p50 "
+              f"{np.median(ranks[0]['serve']['step_ms']):.1f} vs "
+              f"{np.median(twin_serve['step_ms']):.1f}, serve peak GiB "
+              f"{[round(r['serve']['peak_gib'], 2) for r in ranks]} vs "
+              f"{twin_serve['peak_gib']:.2f}; phase wall {wall:.1f} s",
+              flush=True)
+        del twin_train, twin_serve
+        torch.cuda.empty_cache()
+
+        # --- 11b: tensor parallelism and the per-shard exchange ---------
+        t0 = time.perf_counter()
+        ranks = _spawn_place("b", 4)
+        wall = time.perf_counter() - t0
+        cfg = _place_cfg(PLACE_TP_ARCH)
+        twin = _place_train(torch, cfg, one, dev)
+        _check(abs(ranks[0]["losses"][0] - twin["losses"][0])
+               <= 1e-5 * abs(twin["losses"][0]),
+               f"11b: first loss {ranks[0]['losses'][0]} vs one process "
+               f"{twin['losses'][0]}")
+        counts = {k: sum(r["counts"][k] for r in ranks)
+                  for k in ranks[0]["counts"]}
+        for r in ranks:
+            _check(r["losses"] == ranks[0]["losses"], "11b: losses differ")
+            _check(r["checked"]["seeds"] == r["counts"]["seeds"] > 0
+                   and r["checked"]["blockselect"]
+                   == r["counts"]["blockselect"] > 0,
+                   f"11b: rank {r['rank']} launches {r['counts']} vs "
+                   f"checked {r['checked']}")
+            _check(r["exchange_max_rel"] <= 1e-5, f"11b: rank {r['rank']} "
+                   f"exchange off the formula by {r['exchange_max_rel']}")
+        biggest = max(max(r["blocks"]) for r in ranks)
+        _check(biggest == PLACE_BLOCK[0] * PLACE_BLOCK[1],
+               f"11b: largest block {biggest} rows")
+        gen = torch.Generator(device=dev).manual_seed(21)
+        g = torch.randn(biggest, generator=gen, device=dev)
+        stats = big_leaf_kernels(torch, dev, g, 17, f"11b on {card}: "
+                                 f"emb.tok block {PLACE_BLOCK}")
+        del g
+        torch.cuda.empty_cache()
+        print(f"11b tensor parallel {PLACE_TP_ARCH} at {cfg.num_layers} "
+              f"layers, mesh (2, 1, 2), 4 gloo processes on {card}: "
+              f"compressed losses {ranks[0]['losses']} (first vs one "
+              f"process {twin['losses'][0]}), step s {ranks[0]['sec']}; "
+              f"K1/K2 launches {counts['seeds']}/{counts['blockselect']} "
+              f"over the ranks, each held against its plain version (max "
+              f"abs {max(r['errs']['seeds'] for r in ranks):.3g} / "
+              f"{max(r['errs']['blockselect'] for r in ranks):.3g}) on "
+              f"blocks of {ranks[0]['blocks']} rows; exchange of "
+              f"{ranks[0]['exchange_leaf']} block = formula within "
+              f"{max(r['exchange_max_rel'] for r in ranks):.3g}; phase "
+              f"wall {wall:.1f} s", flush=True)
+        del twin
+        torch.cuda.empty_cache()
+
+        # --- 11c: gemma-2b and phi3-mini-3.8b at full width and depth ---
+        t0 = time.perf_counter()
+        ranks = _spawn_place("c", 2)
+        wall = time.perf_counter() - t0
+        for arch in PLACE_CARD_ARCHS:
+            twin = _place_serve(torch, get_config(arch), one, dev)
+            err = _hold_serve(torch, ranks[0][arch], twin, f"11c {arch}")
+            got = ranks[0][arch]
+            print(f"11c {arch} full depth, mesh (1, 1, 2), 2 gloo "
+                  f"processes on {card}: cache pspecs {got['specs']} "
+                  f"(prefill, decode), logits within {err:.3g} of one "
+                  f"process, greedy tokens equal; prefill ms "
+                  f"{got['prefill_ms']:.1f} vs {twin['prefill_ms']:.1f}, "
+                  f"decode ms/step p50 {np.median(got['step_ms']):.1f} vs "
+                  f"{np.median(twin['step_ms']):.1f}, peak GiB "
+                  f"{[round(r[arch]['peak_gib'], 2) for r in ranks]} vs "
+                  f"{twin['peak_gib']:.2f}", flush=True)
+            del twin
+            torch.cuda.empty_cache()
+        print(f"11c wall {wall:.1f} s", flush=True)
+    finally:
+        Mod.ACT_DTYPE = old
+    return ({name: {f"placement_block_{k}": v for k, v in s.items()}
+             for name, s in stats.items()}, counts)
+
+
 def member_triples(torch, sk):
     """A sketch's member slots as a sorted list of (key, weight, prob)."""
     m = sk.member & sk.valid
@@ -2981,6 +3630,7 @@ def main() -> int:
     serve_counts, moe_stats, moe_counts = phase_serve(torch, K, dev, card)
     ssm_counts, hybrid_counts, hybrid_stats = phase_ssm(torch, K, dev, card)
     enc_counts, vlm_counts, enc_stats = phase_encoder_vlm(torch, K, dev, card)
+    place_stats, place_counts = phase_placement(torch, K, dev, card)
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),
@@ -3006,7 +3656,9 @@ def main() -> int:
                      "hybrid_train_launches": hybrid_counts[name],
                      **enc_stats.get(name, {}),
                      "encoder_train_launches": enc_counts[name],
-                     "vlm_serve_launches": vlm_counts[name]})
+                     "vlm_serve_launches": vlm_counts[name],
+                     **place_stats.get(name, {}),
+                     "placement_launches": place_counts[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3017,4 +3669,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-worker"]:
         sys.exit(_train_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--place-worker"]:
+        sys.exit(_place_worker(sys.argv[2], int(sys.argv[3]),
+                               int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -14,7 +14,12 @@ fields with a leading "."), e.g. ``shards/0/.keys``.
     a save's prune never deletes a step a restore is reading.
 
 Tensors are copied to the host (``.cpu().numpy()``) to be saved; restored
-arrays land on the device of the template's leaves.
+arrays land on the device of the template's leaves. A placed state (each
+rank holding blocks, ``launch/sharding.py``) is saved with its
+``shardings``: the leaves are gathered whole one at a time, rank 0 of
+the mesh copies each to the host and writes them; ``restore_step`` / ``restore_latest`` with ``shardings`` cut
+each whole array to this rank's block, so a checkpoint written on one
+mesh restores onto another.
 """
 from __future__ import annotations
 
@@ -74,6 +79,10 @@ def _unflatten(template, arrays: dict, prefix: str = ""):
     return torch.from_numpy(a).to(dev)
 
 
+def _mesh_of(shardings):
+    return next(iter(_flatten(shardings).values())).mesh
+
+
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
@@ -92,14 +101,21 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, state, blocking: bool = True,
-             extra_meta: dict | None = None):
+             extra_meta: dict | None = None, shardings=None):
         """Copy to host and persist; with blocking=False the files are
         written on a background thread. ``extra_meta`` (JSON-able) is
-        stored under meta.json["extra"]."""
+        stored under meta.json["extra"]. ``shardings`` (the state's
+        ``NamedSharding`` tree): the state is this rank's blocks; every
+        rank of the mesh must call ``save``, and only its rank 0 writes."""
         self.wait()
-        if step in self.list_steps():
-            return
-        host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        if shardings is None:
+            if step in self.list_steps():
+                return
+            host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        else:
+            host = self._gather_to_host(state, shardings)
+            if host is None or step in self.list_steps():
+                return
         if blocking:
             self._write(step, host, extra_meta)
         else:
@@ -107,6 +123,24 @@ class CheckpointManager:
                 target=self._write, args=(step, host, extra_meta),
                 daemon=True)
             self._thread.start()
+
+    @staticmethod
+    def _gather_to_host(state, shardings):
+        """The whole leaves of a placed state on the host of the mesh's
+        rank 0 (None on the other ranks): one leaf at a time is gathered
+        (a collective over the axes its spec names), copied to the host on
+        rank 0 and dropped, so no rank holds more than one whole leaf on
+        its device at once."""
+        from repro_torch.launch.sharding import whole_of
+        mesh = _mesh_of(shardings)
+        specs = _flatten(shardings)
+        host = {}
+        for k, v in _flatten(state).items():
+            whole = whole_of(v, specs[k].spec, mesh)
+            if mesh.rank == 0:
+                host[k] = _to_host(whole)
+            del whole
+        return host if mesh.rank == 0 else None
 
     def wait(self):
         if self._thread is not None:
@@ -197,9 +231,11 @@ class CheckpointManager:
                 arrays[k] = v
             return meta["step"], arrays
 
-    def restore_step(self, step: int, template):
+    def restore_step(self, step: int, template, shardings=None):
         """Restore ONE step into ``template``'s structure, or None if that
-        step is corrupt or partial."""
+        step is corrupt or partial. ``shardings`` (a ``NamedSharding``
+        tree of the template's structure): each array is cut to this
+        rank's block."""
         try:
             step, arrays = self._load(step)
         except (OSError, ValueError, KeyError, EOFError) as e:
@@ -209,12 +245,17 @@ class CheckpointManager:
         if missing:
             print(f"[ckpt] step {step} missing {len(missing)} arrays")
             return None
+        if shardings is not None:
+            from repro_torch.launch.sharding import block_of
+            for k, sh in _flatten(shardings).items():
+                arrays[k] = block_of(torch.from_numpy(arrays[k]), sh.spec,
+                                     sh.mesh).numpy()
         return _unflatten(template, arrays)
 
-    def restore_latest(self, template):
+    def restore_latest(self, template, shardings=None):
         """Newest intact checkpoint -> (state, step), or (None, -1)."""
         for step in reversed(self.list_steps()):
-            state = self.restore_step(step, template)
+            state = self.restore_step(step, template, shardings)
             if state is not None:
                 return state, step
         return None, -1

@@ -20,7 +20,11 @@ FIXED-SIZE multi-objective bottom-k sample of its gradient:
 
 Within a pod the gradients are averaged densely over the ``data`` group
 first (``launch/steps.py``); leaves under ``min_size`` elements are
-averaged densely over the pod group too. Each leaf is reseeded by its
+averaged densely over the pod group too. A placed gradient is exchanged
+block by block, as the reference's ``shard_map`` over every axis does:
+each rank samples its own block (keys are positions in the flattened
+block, the dense/sampled choice tests the block's size, the seed is the
+same for every block of a pod) and the gather runs over ``pod`` only. Each leaf is reseeded by its
 index in sorted-key flatten order, the pod and the step, wrapping mod 2^32
 as the reference's uint32 sum does.
 
@@ -81,9 +85,14 @@ def _sample_leaf(g, k: int, seed: int, cap_frac: float,
                  use_kernels: bool = True) -> MultiSketch:
     """Multi-objective bottom-k sample of one gradient leaf as a 3k-slot
     MultiSketch wire slab (members first, in index order; aux dropped:
-    pods hold disjoint key spaces, so only members carry HT mass)."""
+    pods hold disjoint key spaces, so only members carry HT mass). The
+    keys are int32 positions: a leaf (or block) of 2^31 rows or more
+    raises ``ValueError`` rather than wrap."""
+    n = g.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"a gradient leaf of {n:,} rows is past the "
+                         f"exchange's int32 keys (at most 2^31 - 1 rows)")
     flat = g.reshape(-1).to(torch.float32)
-    n = flat.shape[0]
     dev = flat.device
     wn = torch.abs(flat)
     wn.div_(torch.clamp_min(torch.max(wn), 1e-30))  # weights in (0, 1]
@@ -167,7 +176,8 @@ def _merge_own(g, gathered, pod: int):
 def exchange_grads(mesh, grads, step: int, *, axis: str = "pod",
                    k: int = 512, cap_frac: float = 0.01, seed: int = 17,
                    min_size: int = 65536, return_wires: bool = False):
-    """The sampled cross-pod exchange of a pod-local gradient tree: every
+    """The sampled cross-pod exchange of a pod-local gradient tree (each
+    leaf this rank's block, contiguous): every
     leaf of >= ``min_size`` elements is sampled, the slabs of all such
     leaves are gathered over the pod group in one collective, and each
     leaf becomes (total - est_self + own_g) / npods; smaller leaves are

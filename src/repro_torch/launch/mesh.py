@@ -5,8 +5,16 @@ default group out row-major over named axes, ``(pod, data, model)`` or
 ``(data, model)``, and holds one process group per axis (the ranks that
 differ only in that axis's coordinate) and this rank's coordinates. Each
 rank runs its own program and calls the collectives explicitly
-(``all_reduce_mean_``, ``all_gather``), so the reference's
-``shard_map_compat`` has no counterpart.
+(``all_reduce_mean_``, ``all_reduce_sum_``, ``all_gather``,
+``all_gather_dim``, ``reduce_scatter_mean``), so the reference's
+``shard_map_compat`` has no counterpart. A mesh may also lay out a subset
+of the default group's ranks (``ranks=``); every rank of the default group
+still builds it, since process groups are created collectively.
+
+The autograd pairs of tensor parallelism (Megatron's) are here too:
+``copy_to`` (identity forward, sum over the axis backward), ``reduce_from``
+(sum forward, identity backward) and ``gather_from`` (concatenate along a
+dim forward, the rank's slice of the sum or mean backward).
 
 Without an initialised default group a mesh sets up a one-rank group on a
 ``HashStore`` (NCCL on the card, gloo on the CPU), so the same collective
@@ -15,9 +23,9 @@ processes initialise the default group themselves
 (``torch.distributed.init_process_group`` with a ``tcp://localhost:<port>``
 address, the world size and the rank) before building a mesh. Groups on
 gloo take CPU tensors: the collectives here stage CUDA tensors through the
-host for them.
-
-A ``model`` axis > 1 (tensor parallelism) is not ported yet.
+host for them. torch's gloo backend has no reduce-scatter, so
+``reduce_scatter_mean`` is an all-reduce and then the rank's slice, on every
+backend.
 """
 from __future__ import annotations
 
@@ -46,37 +54,45 @@ class Mesh:
     """Named axes over the default group's ranks (row-major), one process
     group per axis."""
 
-    def __init__(self, shape, axis_names, device=None):
+    def __init__(self, shape, axis_names, device=None, ranks=None):
+        """``ranks``: the default group's ranks the mesh lays out, in
+        row-major order (default: all of them). Every rank of the default
+        group must build the mesh; on a rank outside ``ranks`` it has no
+        coordinates (``member`` is False) and no collective may be called
+        on it."""
         shape = tuple(int(s) for s in shape)
         axis_names = tuple(axis_names)
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {shape} vs axes {axis_names}")
-        if dict(zip(axis_names, shape)).get("model", 1) > 1:
-            raise NotImplementedError(
-                "a 'model' mesh axis > 1 (tensor parallelism) is not ported "
-                "yet: the tensor-parallel placement waits")
         dev = resolve_device(device)
         ensure_process_group(dev)
         world = dist.get_world_size()
-        if math.prod(shape) != world:
+        ranks = list(range(world)) if ranks is None else list(ranks)
+        if math.prod(shape) != len(ranks) or not set(ranks) <= set(
+                range(world)):
             raise ValueError(f"mesh {shape} needs {math.prod(shape)} "
-                             f"processes, the default group has {world}")
+                             f"processes, the default group has {world}"
+                             + ("" if len(ranks) == world
+                                else f" (ranks {ranks} asked for)"))
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", dist.get_rank()
                                % torch.cuda.device_count())
         self.device = dev
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
-        self.rank = dist.get_rank()
-        self.coords = dict(zip(axis_names, _unravel(self.rank, shape)))
+        me = dist.get_rank()
+        self.member = me in ranks
+        self.rank = ranks.index(me) if self.member else None
+        self.coords = (dict(zip(axis_names, _unravel(self.rank, shape)))
+                       if self.member else None)
         self._groups = {}
         for i, name in enumerate(axis_names):
             # every rank creates every group, in the same order
             for other in _product(shape[:i] + (1,) + shape[i + 1:]):
-                ranks = [_ravel(other[:i] + (c,) + other[i + 1:], shape)
-                         for c in range(shape[i])]
-                group = dist.new_group(ranks)
-                if self.rank in ranks:
+                members = [ranks[_ravel(other[:i] + (c,) + other[i + 1:],
+                                        shape)] for c in range(shape[i])]
+                group = dist.new_group(members)
+                if me in members:
                     self._groups[name] = group
 
     def group(self, axis: str):
@@ -135,13 +151,144 @@ def all_reduce_mean_(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def all_gather(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
-    """[m, *x.shape]: ``x`` of every rank along ``axis``, in coordinate
-    order, on x's device."""
+def all_reduce_sum_(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (contiguous) becomes its sum over the ranks along ``axis``.
+    Returns ``x``."""
+    return _all_reduce_(mesh, axis, x, dist.ReduceOp.SUM)
+
+
+def all_reduce_max_(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (contiguous) becomes its elementwise maximum over the ranks
+    along ``axis``. Returns ``x``."""
+    return _all_reduce_(mesh, axis, x, dist.ReduceOp.MAX)
+
+
+def _all_reduce_(mesh, axis, x, op):
+    if mesh.shape[axis] == 1:
+        return x
+    y = _staged(mesh, axis, x)
+    dist.all_reduce(y, op=op, group=mesh.group(axis))
+    if y is not x:
+        x.copy_(y)
+    return x
+
+
+def _gathered(mesh, axis, x) -> list:
     y = _staged(mesh, axis, x)
     out = [torch.empty_like(y) for _ in range(mesh.shape[axis])]
     dist.all_gather(out, y, group=mesh.group(axis))
-    return torch.stack(out).to(x.device)
+    return out
+
+
+def all_gather(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    """[m, *x.shape]: ``x`` of every rank along ``axis``, in coordinate
+    order, on x's device."""
+    return torch.stack(_gathered(mesh, axis, x)).to(x.device)
+
+
+def all_gather_dim(mesh: Mesh, axis: str, x: torch.Tensor,
+                   dim: int) -> torch.Tensor:
+    """``x`` of every rank along ``axis`` concatenated along tensor dim
+    ``dim``, in coordinate order, on x's device (``x`` itself on an axis
+    of size 1)."""
+    if mesh.shape[axis] == 1:
+        return x
+    return torch.cat(_gathered(mesh, axis, x), dim=dim).to(x.device)
+
+
+def _block(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    size = x.shape[dim] // n
+    return x.narrow(dim, i * size, size).contiguous()
+
+
+def reduce_scatter_sum(mesh: Mesh, axis: str, x: torch.Tensor,
+                       dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over the ranks
+    along ``axis``: an all-reduce, then the slice (torch's gloo has no
+    reduce-scatter). ``x`` is left as it is."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    if mesh.stages_through_host(axis) and x.device.type != "cpu":
+        y = x.to("cpu").contiguous()      # the host copy is the buffer
+    else:
+        y = x.contiguous().clone()
+    dist.all_reduce(y, group=mesh.group(axis))
+    return _block(y, dim, n, mesh.coords[axis]).to(x.device)
+
+
+def reduce_scatter_mean(mesh: Mesh, axis: str, x: torch.Tensor,
+                        dim: int) -> torch.Tensor:
+    """``reduce_scatter_sum`` divided by the axis's size."""
+    n = mesh.shape[axis]
+    return x if n == 1 else reduce_scatter_sum(mesh, axis, x, dim).div_(n)
+
+
+# ---------------------------------------------------------------------------
+# the autograd pairs of tensor parallelism (and FSDP's gather)
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum_(ctx.mesh, ctx.axis,
+                               g.contiguous().clone()), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, mean):
+        y = all_reduce_sum_(mesh, axis, x.contiguous().clone())
+        return y.div_(mesh.shape[axis]) if mean else y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, mean):
+        ctx.args = (mesh, axis, dim, mean)
+        return all_gather_dim(mesh, axis, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, mean = ctx.args
+        scatter = reduce_scatter_mean if mean else reduce_scatter_sum
+        return scatter(mesh, axis, g, dim), None, None, None, None
+
+
+def copy_to(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; backward sums the gradient over ``axis``. Marks a
+    tensor that every rank holds whole entering work that each rank does
+    a part of (Megatron's f)."""
+    return x if mesh.shape[axis] == 1 else _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(mesh: Mesh, axis: str, x: torch.Tensor,
+                mean: bool = False) -> torch.Tensor:
+    """The sum (``mean``: the mean) over ``axis`` forward; identity
+    backward: the ranks' parts of a result made whole (Megatron's g)."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis, mean)
+
+
+def gather_from(mesh: Mesh, axis: str, x: torch.Tensor, dim: int,
+                mean: bool = False) -> torch.Tensor:
+    """``all_gather_dim`` forward; backward this rank's block of the
+    gradient summed (``mean``: averaged) over ``axis``. Over ``model`` the
+    ranks' gradients are parts of one sum; over ``data`` (FSDP) they are
+    the gradients of the ranks' rows, whose mean the step takes."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _GatherFrom.apply(x, mesh, axis, dim, mean)
 
 
 # ---------------------------------------------------------------------------
@@ -158,8 +305,7 @@ def mesh_context(mesh):
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """The production layouts: (16, 16) over (data, model), or
     (2, 16, 16) over (pod, data, model). Raises unless the default group
-    has that many processes, and (tensor parallelism) for the model axis
-    of 16."""
+    has that many processes."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = AXES[len(shape)]
     if dist.is_initialized() and dist.get_world_size() != math.prod(shape):

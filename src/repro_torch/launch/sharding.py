@@ -4,15 +4,24 @@ Port of ``repro/launch/sharding.py``. Model code declares per-dimension
 LOGICAL axes ("embed", "q_heads", "mlp", "vocab", ...); this module maps
 them to mesh axes with divisibility gating, as tuples of axis names equal
 to the reference's ``PartitionSpec``s. A dimension is sharded on "model"
-only when its size divides evenly. The port runs at a ``model`` axis of 1
-(``launch/mesh.py``), so these specs describe placements; the only
-placement it carries out is the batch split over (pod, data)
-(``batch_slice``). ``cache_pspecs`` is the reference's ``cache_shardings``
-rule for decode caches.
+only when its size divides evenly. ``cache_pspecs`` is the reference's
+``cache_shardings`` rule for decode caches.
+
+The placement is explicit: there is no GSPMD. ``place`` cuts every leaf to
+the block this rank holds (each named mesh axis splits its dim into equal
+blocks, taken at this rank's coordinate; a tuple of axes splits it in
+row-major order), ``unplace`` gathers the blocks back into the whole leaf
+on every rank, and the model code (``models/parallel.py``) calls the
+collectives by name. ``param_shardings`` / ``batch_shardings`` /
+``cache_shardings`` / ``replicated`` keep the reference's names and give
+``NamedSharding``s: a pspec bound to its mesh.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch import tree as T
+from repro_torch.launch.mesh import all_gather_dim
 
 # logical axes that map to the tensor-parallel ("model") mesh axis
 _MODEL_AXES = ("q_heads", "kv_heads", "mlp", "vocab", "expert", "inner")
@@ -119,3 +128,113 @@ def batch_slice(mesh, n: int) -> slice:
                          f"(pod, data) ranks")
     b = n // parts
     return slice(index * b, (index + 1) * b)
+
+
+# ---------------------------------------------------------------------------
+# pspecs bound to a mesh, and the placement they describe
+# ---------------------------------------------------------------------------
+
+class NamedSharding:
+    """A partition spec bound to its mesh (the reference's
+    ``jax.sharding.NamedSharding``)."""
+
+    def __init__(self, mesh, spec: tuple = ()):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def __eq__(self, other):
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and other.spec == self.spec)
+
+    def __repr__(self):
+        return f"NamedSharding({self.spec})"
+
+
+def bind(mesh, pspec_tree):
+    """A pspec tree -> the ``NamedSharding`` tree on ``mesh``."""
+    return T.tree_map(lambda sp: NamedSharding(mesh, sp), pspec_tree)
+
+
+def param_shardings(spec_tree, shape_tree, mesh, fsdp: bool = False):
+    """The ``NamedSharding`` tree of the params (and, reused, of the
+    moments)."""
+    return bind(mesh, param_pspecs(spec_tree, shape_tree, mesh, fsdp))
+
+
+def batch_shardings(batch_tree, mesh):
+    """Every batch leaf on its leading (batch) dim, replicated when the
+    batch does not split over the (pod, data) ranks."""
+    b = batch_pspec(mesh)[0]
+    n = _nshards(mesh, b)
+    return T.tree_map(lambda leaf: NamedSharding(
+        mesh, (b,) if leaf.shape[0] % n == 0 else ()), batch_tree)
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+def cache_shardings(cache_tree, cfg, mesh):
+    """``cache_pspecs`` bound to the mesh."""
+    return bind(mesh, cache_pspecs(cache_tree, cfg, mesh))
+
+
+def _split(mesh, axes) -> tuple:
+    """(number of blocks, this rank's block index) of a dim placed on
+    ``axes`` (one name or a tuple, row-major)."""
+    n, i = 1, 0
+    for a in (axes if isinstance(axes, tuple) else (axes,)):
+        n *= mesh.shape[a]
+        i = i * mesh.shape[a] + mesh.coords[a]
+    return n, i
+
+
+def block_of(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of a whole leaf ``x`` under ``spec``, contiguous
+    (a copy unless nothing is split)."""
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n, i = _split(mesh, axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"into {n} blocks ({axes})")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, i * size, size)
+    return x.contiguous()
+
+
+def whole_of(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's block ``x``: every placed dim
+    gathered over its axes (a collective over them)."""
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        for a in reversed(axes if isinstance(axes, tuple) else (axes,)):
+            x = all_gather_dim(mesh, a, x.contiguous(), dim)
+    return x
+
+
+def _map_placed(fn, tree, pspecs):
+    """``fn(leaf, spec)`` over a state tree and its pspec (or
+    NamedSharding) tree, whose NamedTuple nodes (the telemetry slab) carry
+    one spec per field."""
+    if isinstance(tree, dict):
+        return {k: _map_placed(fn, v, pspecs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_placed(fn, v, s)
+                            for v, s in zip(tree, pspecs)))
+    return fn(tree, pspecs.spec if isinstance(pspecs, NamedSharding)
+              else pspecs)
+
+
+def place(tree, pspecs, mesh):
+    """The whole leaves of ``tree`` -> the blocks this rank holds under
+    ``pspecs`` (pspecs or NamedShardings, the tree's structure)."""
+    return _map_placed(lambda x, s: block_of(x, s, mesh), tree, pspecs)
+
+
+def unplace(tree, pspecs, mesh):
+    """This rank's blocks -> the whole leaves, on every rank (every rank of
+    the mesh must call it)."""
+    return _map_placed(lambda x, s: whole_of(x, s, mesh), tree, pspecs)

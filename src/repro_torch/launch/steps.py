@@ -1,15 +1,22 @@
 """The training, prefill and decode steps and the spec trees of their
 inputs and state.
 
-Port of ``repro/launch/steps.py``. Each rank runs the train step on its
-rows of the global batch (``sharding.batch_slice``): gradients are taken
-on them, averaged over the ``data`` group (the pod's batch), then over the
-``pod`` group densely or, with ``compress``, through the sampled exchange
-(``distopt.compression``); AdamW follows, and with ``telemetry`` the
+Port of ``repro/launch/steps.py``. The state is placed: every rank holds
+the blocks of the params and moments that ``state_specs`` gives it
+(``sharding.place``; FSDP leaves over ``data``, tensor-parallel leaves
+over ``model``). Each rank runs the train step on its rows of the global
+batch (``sharding.batch_slice``): gradients are taken on them (an FSDP
+leaf's gradient comes back as the rank's block of the mean over ``data``,
+from the gather's backward; the others are averaged over the ``data``
+group), then reduced over the ``pod`` group densely or, with
+``compress``, through the sampled exchange (``distopt.compression``, one
+sample per block); AdamW runs on the blocks, and with ``telemetry`` the
 step's loss is folded into a device-resident MultiSketch. No train state
 is donated: every train step returns fresh tensors and leaves its input
-valid. The decode step writes into the cache it is given (the
-reference's serve step donates its cache).
+valid. The prefill and decode steps take placed params and the global
+batch, run on the rank's rows and give back the whole logits and the
+cache placed by ``cache_pspecs``; the decode step writes into the cache
+it is given (the reference's serve step donates its cache).
 """
 from __future__ import annotations
 
@@ -22,9 +29,11 @@ from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core.multi_sketch import (MultiSketchSpec,
                                            multisketch_absorb_inline)
 from repro_torch.launch import sharding as Sh
-from repro_torch.launch.mesh import all_reduce_mean_
+from repro_torch.launch.mesh import all_gather_dim, all_reduce_mean_
 from repro_torch.launch.summary import multisketch_shape
+from repro_torch.models import layers as L
 from repro_torch.models import model as Mod
+from repro_torch.models import parallel as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 
@@ -79,11 +88,57 @@ def state_specs(cfg: ModelConfig, mesh, telemetry=None) -> dict:
     return out
 
 
-def _check_placement(cfg: ModelConfig):
+def state_shardings(cfg: ModelConfig, mesh, telemetry=None):
+    """(``NamedSharding`` tree of the train state, its meta-device shapes):
+    the reference's ``state_shardings``."""
+    specs = state_specs(cfg, mesh, telemetry)
+    shapes = abstract_state(cfg, telemetry)[0]
+    out = {"params": Sh.bind(mesh, specs["params"]),
+           "opt": {"m": Sh.bind(mesh, specs["opt"]["m"]),
+                   "v": Sh.bind(mesh, specs["opt"]["v"]),
+                   "step": Sh.replicated(mesh)}}
+    if telemetry is not None:
+        out["tel"] = type(specs["tel"])(*(Sh.replicated(mesh)
+                                          for _ in specs["tel"]))
+    return out, shapes
+
+
+def _check_placement(cfg: ModelConfig, mesh):
     Mod.check_family(cfg)
-    if cfg.fsdp:
-        raise NotImplementedError(
-            f"{cfg.name}: FSDP placement is not ported yet")
+    P.check_tensor_parallel(cfg, mesh)
+
+
+def _gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The ranks' rows (their ``batch_slice``s) of the global batch, whole
+    on every rank: gathered over data, then pod."""
+    for a in ("data", "pod"):
+        if a in mesh.axis_names:
+            x = all_gather_dim(mesh, a, x.contiguous(), 0)
+    return x
+
+
+def _nrows(mesh) -> int:
+    """The number of (pod, data) ranks the batch splits over."""
+    n = 1
+    for a in ("pod", "data"):
+        n *= mesh.shape.get(a, 1)
+    return n
+
+
+def _rows(mesh, n: int):
+    """This rank's rows of an n-row global batch, or all of them when n
+    does not split over (pod, data) (the batch is then replicated, as the
+    reference's ``batch_shardings`` leaves it)."""
+    return Sh.batch_slice(mesh, n) if n % _nrows(mesh) == 0 else slice(0, n)
+
+
+def _cache_dim(cfg, mesh, batch: int, length: int):
+    """(cache pspecs of a [batch, length] cache, the per-layer k/v dim
+    placed on ``model`` or None)."""
+    specs = Sh.cache_pspecs(Mod.make_cache(cfg, batch, length,
+                                           device="meta"), cfg, mesh)
+    kv = specs.get("k", ())
+    return specs, (kv.index("model") - 1 if "model" in kv else None)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
@@ -105,11 +160,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
     (the reference folds on its plain path; the two give identical
     slabs).
     """
-    _check_placement(cfg)
+    _check_placement(cfg, mesh)
     st_specs = state_specs(cfg, mesh, telemetry)
+    psp = st_specs["params"]
+    # under the sampled exchange a pod's loss is over the pod's batch
+    sh = P.Shards(mesh, psp, ("data",) if compress is not None else None)
 
     def grads_once(params, batch):
-        model = Mod.Model(cfg, params)
+        model = Mod.Model(cfg, params, sh)
         loss, metrics = model(batch)
         named = list(model.named_parameters())
         # an encoder's token embedding is unused: its gradient is zeros,
@@ -124,11 +182,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
                             for (n, _), g in zip(named, grads)))
 
     def mean_over(axis, loss, metrics, grads):
+        """The mean over ``axis`` of the loss, metrics and every gradient
+        leaf not placed on it (an FSDP block's gradient already is the
+        mean over ``data``)."""
         names = sorted(metrics)
         packed = all_reduce_mean_(mesh, axis, torch.stack(
             [loss] + [metrics[m].to(torch.float32) for m in names]))
         return (packed[0], {m: packed[i + 1] for i, m in enumerate(names)},
-                T.tree_map(lambda g: all_reduce_mean_(mesh, axis, g), grads))
+                T.tree_map(lambda g, s: g if axis in s
+                           else all_reduce_mean_(mesh, axis, g), grads, psp))
 
     def compute_grads(params, batch):
         """This pod's loss and gradients: this rank's rows (optionally in
@@ -161,8 +223,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
     def step_fn(state, batch):
         params = state["params"]
         opt_step = state["opt"]["step"]
-        rows = Sh.batch_slice(mesh, next(iter(batch.values())).shape[0])
-        local = {k: v[rows] for k, v in batch.items()}
+        n = next(iter(batch.values())).shape[0]
+        local = {k: L.shard_tokens(v[Sh.batch_slice(mesh, n)],
+                                   cfg.constrain_acts, mesh, n)
+                 for k, v in batch.items()}
         if compressed is not None:
             loss, metrics, grads = compressed(params, local, int(opt_step))
         else:
@@ -175,7 +239,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
 
         with torch.no_grad():
             new_params, new_opt, om = adamw.apply_updates(
-                params, grads, state["opt"], opt_cfg)
+                params, grads, state["opt"], opt_cfg, pspecs=psp, mesh=mesh)
         del grads
         new_state = {"params": new_params, "opt": new_opt}
         if telemetry is not None:
@@ -199,15 +263,28 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
 def make_prefill_step(cfg: ModelConfig, mesh,
                       shape: Optional[ShapeConfig] = None):
     """Returns (step, param pspecs, cache pspecs: None without ``shape``,
-    {} for an encoder); ``step(params, batch) -> (last-position logits,
-    cache)`` (``Mod.prefill``; an encoder's is its inference forward and
-    gives the cache {})."""
-    _check_placement(cfg)
+    {} for an encoder); ``step(params, batch) -> (last-position logits
+    [B, Vp], cache)`` (``Mod.prefill``; an encoder's is its inference
+    forward and gives the cache {}). ``params`` are this rank's blocks
+    (``sharding.place`` by the param pspecs), ``batch`` the global batch;
+    the cache comes back placed by the cache pspecs of its own shape."""
+    _check_placement(cfg, mesh)
     p, specs = Mod.abstract_params(cfg)
-    psp = Sh.param_pspecs(specs, p, mesh)
+    psp = Sh.param_pspecs(specs, p, mesh, fsdp=cfg.fsdp)
+    sh = P.Shards(mesh, psp)
 
     def step_fn(params, batch):
-        return Mod.prefill(params, cfg, batch)
+        n = next(iter(batch.values())).shape[0]
+        local = {k: v[_rows(mesh, n)] for k, v in batch.items()}
+        dim = None
+        if cfg.family != "encoder":
+            S = sum(v.shape[1] for k, v in batch.items()
+                    if k in ("tokens", "patches"))
+            dim = _cache_dim(cfg, mesh, n, S)[1]
+        logits, cache = Mod.prefill(params, cfg, local, sh, dim)
+        if n % _nrows(mesh) == 0:
+            logits = _gather_rows(mesh, logits)
+        return logits, cache
     if shape is None:
         cache = None
     elif cfg.family == "encoder":
@@ -220,13 +297,30 @@ def make_prefill_step(cfg: ModelConfig, mesh,
 def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh):
     """Single-token decode step against a ``shape.seq_len`` cache. Returns
     (step, param pspecs, cache pspecs); ``step(params, tokens, cache,
-    index) -> (logits, cache)`` writes into ``cache`` in place
-    (``Mod.serve_step``)."""
-    _check_placement(cfg)
+    index) -> (logits [B, Vp], cache)`` takes this rank's param blocks,
+    the global tokens [B] and the cache placed by the cache pspecs, and
+    writes into ``cache`` in place (``Mod.serve_step``)."""
+    _check_placement(cfg, mesh)
     p, specs = Mod.abstract_params(cfg)
-    psp = Sh.param_pspecs(specs, p, mesh)
+    psp = Sh.param_pspecs(specs, p, mesh, fsdp=cfg.fsdp)
+    sh = P.Shards(mesh, psp)
+    csp, dim = _cache_dim(cfg, mesh, shape.global_batch, shape.seq_len)
 
     def step_fn(params, tokens, cache, index):
-        return Mod.serve_step(params, cfg, tokens, cache, index)
-    return step_fn, psp, Sh.cache_pspecs(cache_abstract(cfg, shape), cfg,
-                                         mesh)
+        n = tokens.shape[0]
+        logits, cache = Mod.serve_step(params, cfg, tokens[_rows(mesh, n)],
+                                       cache, index, sh, dim)
+        if n % _nrows(mesh) == 0:
+            logits = _gather_rows(mesh, logits)
+        return logits, cache
+    return step_fn, psp, csp
+
+
+def grow_placed_cache(cfg: ModelConfig, cache, specs, extra: int, mesh):
+    """``Mod.grow_cache`` on a placed cache: gathered whole by its pspecs
+    ``specs``, grown by ``extra`` slots, and placed again by the pspecs of
+    the grown shape (the rule may pick another dim once S changes).
+    Returns (cache, its pspecs)."""
+    whole = Mod.grow_cache(cfg, Sh.unplace(cache, specs, mesh), extra)
+    new = Sh.cache_pspecs(whole, cfg, mesh)
+    return Sh.place(whole, new, mesh), new

@@ -14,8 +14,12 @@ preemption handling (SIGTERM -> checkpoint -> exit 0).
 Runs on the card unless ``--device cpu``. One process runs at world size 1;
 for several, start one per rank with ``--dist-url tcp://localhost:<port>
 --world-size N --rank R`` (gloo on the CPU, NCCL on cards), and a
-``--mesh`` whose size is N. Rank 0 writes the checkpoints, every rank
-restores them; under ``--compress`` pods drift apart by design, so a
+``--mesh`` whose size is N; its ``model`` axis may be > 1 (tensor
+parallelism) and a config with ``fsdp`` places its params and moments
+over ``data``. The state is placed (each rank holds its blocks); every
+rank takes part in a checkpoint and rank 0 writes the whole arrays, and
+every rank restores them and keeps its blocks, so a checkpoint restores
+onto another mesh. Under ``--compress`` pods drift apart by design, so a
 resume restarts every pod from pod 0's state.
 """
 from __future__ import annotations
@@ -35,6 +39,7 @@ from repro_torch.configs.registry import (get_config, get_smoke_config,
 from repro_torch.core import (COUNT, SUM, MultiSketchSpec, multisketch_empty,
                               sketch_estimate, thresh)
 from repro_torch.data.pipeline import DataConfig, Loader, SyntheticCorpus
+from repro_torch.launch import sharding as Sh
 from repro_torch.launch import steps as St
 from repro_torch.launch.mesh import AXES, Mesh, make_host_mesh
 from repro_torch.models import model as Mod
@@ -132,25 +137,27 @@ def main(argv=None, callback=None):
     loader = Loader(corpus, dcfg, importance=args.importance_sampling,
                     device=dev)
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    writer = mgr if mesh.rank == 0 else None
 
     step_fn, _ = St.make_train_step(
         cfg, opt_cfg, mesh, microbatch=args.microbatch or None,
         compress=dict(k=256, min_size=65536) if args.compress else None,
         telemetry=TEL_SPEC)
+    shardings, _ = St.state_shardings(cfg, mesh, TEL_SPEC)
 
     params, _ = Mod.init_model(cfg, seed=args.seed, device=dev)
-    state = {"params": params, "opt": adamw.init_opt_state(params),
-             "tel": multisketch_empty(TEL_SPEC, device=dev)}
+    state = Sh.place({"params": params, "opt": adamw.init_opt_state(params),
+                      "tel": multisketch_empty(TEL_SPEC, device=dev)},
+                     shardings, mesh)
     del params
     start = 0
     if mgr and args.resume:
-        restored, rstep = mgr.restore_latest(state)
+        restored, rstep = mgr.restore_latest(state, shardings)
         if restored is None:
             # checkpoints from before the telemetry sketch lack the "tel"
             # arrays: restore params/opt and start telemetry fresh
             core = {kk: state[kk] for kk in ("params", "opt")}
-            restored, rstep = mgr.restore_latest(core)
+            restored, rstep = mgr.restore_latest(
+                core, {kk: shardings[kk] for kk in core})
             if restored is not None:
                 restored = {**restored, "tel": state["tel"]}
         if restored is not None:
@@ -180,17 +187,17 @@ def main(argv=None, callback=None):
             print(f"step {step + 1:5d} loss {float(metrics['loss']):8.4f} "
                   f"gnorm {float(metrics['grad_norm']):8.3f} "
                   f"{dt * 1e3:7.1f} ms/step", flush=True)
-        if writer and ((step + 1) % args.ckpt_every == 0
-                       or preempted["flag"]):
-            writer.save(step + 1, state, blocking=False)
+        if mgr and ((step + 1) % args.ckpt_every == 0
+                    or preempted["flag"]):
+            mgr.save(step + 1, state, blocking=False, shardings=shardings)
         if preempted["flag"]:
             print(f"[train] preempted at step {step + 1}; checkpointed")
-            if writer:
-                writer.wait()
+            if mgr:
+                mgr.wait()
             sys.exit(0)
 
-    if writer:
-        writer.save(args.steps, state, blocking=True)
+    if mgr:
+        mgr.save(args.steps, state, blocking=True, shardings=shardings)
 
     # the device-resident multi-objective summary answers several
     # f-statistics over the whole training history

@@ -19,9 +19,9 @@ Port of ``repro/models/layers.py``. Conventions:
     writes the step's k/v into the cache IN PLACE (the reference's serve
     step donates its cache, so its old cache is gone too).
 
-The reference's ``shard_tokens`` and ``shard_heads`` are GSPMD layout hints
-for a ``model`` mesh axis > 1; the port runs at a ``model`` axis of 1,
-where they are the identity, so they have no counterpart here.
+The reference's ``shard_tokens`` and ``shard_heads`` are GSPMD layout
+hints. The port places blocks explicitly (``models/parallel.py``), so here
+they state and check the layout a rank holds and change no number.
 """
 from __future__ import annotations
 
@@ -80,6 +80,32 @@ class Init:
 def dense_init(init: Init, d_in, d_out, spec, lead=(), scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     return init.normal((*lead, d_in, d_out), scale), spec
+
+
+def shard_tokens(x, enabled: bool, mesh=None, rows=None):
+    """The reference pins a [B, S, ...] activation to batch on (pod, data)
+    at layer boundaries. A rank holds its rows of the global batch here:
+    with ``enabled``, this checks that ``x`` is a 1 / (pod x data) share of
+    ``rows`` global rows, and returns ``x`` as it is."""
+    if enabled and mesh is not None and rows is not None:
+        n = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+        if rows % n or x.shape[0] != rows // n:
+            raise ValueError(f"{x.shape[0]} rows on a rank of a batch of "
+                             f"{rows} over {n} (pod, data) ranks")
+    return x
+
+
+def shard_heads(x, enabled: bool, mesh=None, heads=None):
+    """The reference pins [B, S, H, hd] q/k/v to heads on ``model`` when the
+    head count divides it. With ``enabled``, this checks that a rank then
+    holds its equal block of the ``heads`` global heads, and returns ``x``
+    as it is."""
+    if enabled and mesh is not None and heads is not None and x.ndim == 4:
+        m = mesh.shape.get("model", 1)
+        if heads % m == 0 and x.shape[2] != heads // m:
+            raise ValueError(f"{x.shape[2]} heads on a rank, expected "
+                             f"{heads // m} of {heads} over {m}")
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,15 @@ vlm's cache holds the patches first, so its text decodes from index
 
 An encoder's tree keeps the reference's token embedding ``emb.tok``,
 which its frames bypass: its gradient is zero.
+
+Placed params: ``loss_fn``, ``prefill`` and ``serve_step`` take ``sh``, a
+``parallel.Shards`` over the tree (this rank's blocks and their pspecs).
+Each layer gathers its ``data``-placed (FSDP) leaves inside its
+(checkpointed) function, and at a ``model`` axis > 1 the attention, MLP,
+MoE, embedding and loss run as sums of the ranks' parts
+(``models/parallel.py``). Without ``sh`` nothing changes. The decode cache
+is then this rank's block too (``cache_dim``: the per-layer dim of k/v on
+``model``, as ``sharding.cache_pspecs`` places it).
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ from repro_torch import tree as T
 from . import layers as L
 from . import mamba as M
 from . import moe as MOE
+from . import parallel as P
 from .config import ModelConfig
 
 ACT_DTYPE = torch.bfloat16
@@ -126,19 +136,38 @@ def abstract_params(cfg: ModelConfig):
 # forward (training) — full sequence
 # ---------------------------------------------------------------------------
 
-def _ffn(lp, h, cfg):
+def _tp(sh):
+    """``sh`` when it asks for tensor parallelism, else None."""
+    return sh if sh is not None and sh.tp else None
+
+
+def _whole(lp, sh):
+    """A layer's leaves with their FSDP (``data``) blocks gathered."""
+    return lp if sh is None else sh.whole_over_data(lp)
+
+
+def _ffn(lp, h, cfg, sh=None):
     """The layer's MLP or MoE block: (out, aux losses)."""
     if "moe" in lp:
-        return MOE.apply_moe(lp["moe"], h, cfg)
+        return MOE.apply_moe(lp["moe"], h, cfg,
+                             None if sh is None else sh["moe"])
+    if _tp(sh):
+        return P.mlp(sh["mlp"], lp["mlp"], h, cfg), {}
     return L.apply_mlp(lp["mlp"], h, cfg), {}
 
 
-def _transformer_layer(lp, x, cfg, positions):
+def _attend(lp, h, cfg, positions, sh=None):
+    if _tp(sh):
+        return P.attention(sh["attn"], lp["attn"], h, cfg, positions)[0]
+    return L.apply_attention(lp["attn"], h, cfg, positions)[0]
+
+
+def _transformer_layer(lp, x, cfg, positions, sh=None):
+    lp = _whole(lp, sh)
     h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    a, _ = L.apply_attention(lp["attn"], h, cfg, positions)
-    x = x + a
+    x = x + _attend(lp, h, cfg, positions, sh)
     h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    m, aux = _ffn(lp, h, cfg)
+    m, aux = _ffn(lp, h, cfg, sh)
     return x + m, aux
 
 
@@ -149,20 +178,21 @@ def _layer_params(params, n: int):
     return [T.unflatten((path, ls[i]) for path, ls in per) for i in range(n)]
 
 
-def _ssm_layer(lp, x, cfg, state=None, return_state=False):
+def _ssm_layer(lp, x, cfg, state=None, return_state=False, sh=None):
     """Pre-norm residual Mamba layer: (x + y, the block's new state)."""
+    lp = _whole(lp, sh)
     h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
     apply = M.apply_mamba1 if cfg.ssm_kind == "mamba1" else M.apply_mamba2
     y, st = apply(lp["mamba"], h, cfg, state=state, return_state=return_state)
     return x + y, st
 
 
-def _ssm_group(lps, shared, x, cfg, positions):
+def _ssm_group(lps, shared, x, cfg, positions, sh=None, shared_sh=None):
     """One hybrid group: ``attn_every`` Mamba-2 layers, then the shared
     attention + MLP block."""
     for lp in lps:
-        x, _ = _ssm_layer(lp, x, cfg)
-    return _transformer_layer(shared, x, cfg, positions)[0]
+        x, _ = _ssm_layer(lp, x, cfg, sh=sh)
+    return _transformer_layer(shared, x, cfg, positions, shared_sh)[0]
 
 
 def _n_groups(cfg) -> int:
@@ -180,29 +210,58 @@ def _remat(fn, *args):
     return fn(*args)
 
 
-def _run_stack(params, cfg, x, positions):
+def _layer_shards(sh):
+    """(per-layer Shards of the stacked layers, Shards of the hybrid's
+    shared block), or (None, None) unplaced."""
+    if sh is None:
+        return None, None
+    return (sh["layers"].unstacked(),
+            sh["shared"] if "shared" in sh else None)
+
+
+def _run_stack(params, cfg, x, positions, sh=None):
     """Loop over the stacked layers; returns (hidden, aux_losses)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"moe_aux": zero, "moe_z": zero}
     call = _remat if cfg.remat else (lambda fn, *args: fn(*args))
     layers = _layer_params(params["layers"], cfg.num_layers)
+    lsh, ssh = _layer_shards(sh)
     if cfg.family == "ssm":
         for lp in layers:
-            x = call(_ssm_layer, lp, x, cfg)[0]
+            x = call(_ssm_layer, lp, x, cfg, None, False, lsh)[0]
         return x, aux
     if cfg.family == "hybrid":
         E = cfg.attn_every
         for g in range(_n_groups(cfg)):
             x = call(_ssm_group, layers[g * E:(g + 1) * E], params["shared"],
-                     x, cfg, positions)
+                     x, cfg, positions, lsh, ssh)
         return x, aux
     for lp in layers:
-        x, a = call(_transformer_layer, lp, x, cfg, positions)
+        x, a = call(_transformer_layer, lp, x, cfg, positions, lsh)
         aux = {k: aux[k] + a.get(k, 0.0) for k in aux}
     return x, aux
 
 
-def _inputs_to_hidden(params, cfg, batch):
+def _emb(params, sh):
+    """The embedding leaves, FSDP blocks gathered."""
+    return _whole(params["emb"], None if sh is None else sh["emb"])
+
+
+def _embed(params, tokens, sh):
+    emb = _emb(params, sh)
+    if _tp(sh):
+        return P.embed_tokens(sh["emb"], emb, tokens, ACT_DTYPE)
+    return L.embed_tokens(emb, tokens, ACT_DTYPE)
+
+
+def _logits_last(params, cfg, h, sh):
+    emb = _emb(params, sh)
+    if _tp(sh):
+        return P.logits_last(sh["emb"], emb, h, cfg.vocab_size)
+    return L.logits_last(emb, h, cfg.vocab_size)
+
+
+def _inputs_to_hidden(params, cfg, batch, sh=None):
     """Embed the family's inputs -> (hidden [B,S,D], positions, labels,
     mask). An encoder takes stub frame embeddings ``frames`` [B,S,D] and
     its ``labels`` as given; a vlm prepends stub patch embeddings
@@ -219,7 +278,7 @@ def _inputs_to_hidden(params, cfg, batch):
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
-    x = L.embed_tokens(params["emb"], tokens, ACT_DTYPE)
+    x = _embed(params, tokens, sh)
     text = torch.ones((B, S), dtype=torch.bool, device=dev)
     if cfg.family == "vlm":
         patches = batch["patches"].to(ACT_DTYPE)
@@ -253,12 +312,20 @@ def forward_logits(params, cfg: ModelConfig, batch):
     return logits
 
 
-def loss_fn(params, cfg: ModelConfig, batch):
-    x, positions, labels, mask = _inputs_to_hidden(params, cfg, batch)
-    x, aux = _run_stack(params, cfg, x, positions)
+def loss_fn(params, cfg: ModelConfig, batch, sh=None):
+    """(mean loss, metrics); ``sh``: the params' placement (this rank's
+    blocks), whose rows of the batch ``batch`` is."""
+    if sh is not None:
+        P.check_tensor_parallel(cfg, sh.mesh)
+    x, positions, labels, mask = _inputs_to_hidden(params, cfg, batch, sh)
+    x, aux = _run_stack(params, cfg, x, positions, sh)
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
-    ce = L.chunked_ce_loss(params["emb"], x, labels, mask, cfg.loss_chunk,
-                           vocab_size=cfg.vocab_size)
+    if _tp(sh):
+        ce = P.chunked_ce_loss(sh["emb"], _emb(params, sh), x, labels, mask,
+                               cfg.loss_chunk, vocab_size=cfg.vocab_size)
+    else:
+        ce = L.chunked_ce_loss(_emb(params, sh), x, labels, mask,
+                               cfg.loss_chunk, vocab_size=cfg.vocab_size)
     loss = ce + 0.01 * aux["moe_aux"] + 0.001 * aux["moe_z"]
     return loss, {"ce": ce, **aux}
 
@@ -308,31 +375,46 @@ def grow_cache(cfg: ModelConfig, cache, extra: int):
     return grown
 
 
-def _cached_block(lp, x, cfg, positions, ck, cv, index: int):
+def _cached_block(lp, x, cfg, positions, ck, cv, index: int, sh=None,
+                  cache_dim=None):
     """An attention + MLP block's decode step against the k/v cache of
     one layer (or group), written in place."""
+    lp = _whole(lp, sh)
     h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    a, _ = L.apply_attention(lp["attn"], h, cfg, positions,
-                             cache={"k": ck, "v": cv}, cache_index=index)
+    if _tp(sh):
+        a = P.decode_attention(sh["attn"], lp["attn"], h, cfg, positions,
+                               ck, cv, index, cache_dim)
+    else:
+        a, _ = L.apply_attention(lp["attn"], h, cfg, positions,
+                                 cache={"k": ck, "v": cv}, cache_index=index)
     x = x + a
     h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)[0]
+    return x + _ffn(lp, h, cfg, sh)[0]
 
 
-def _ssm_step(lp, x, cfg, states: dict, i: int):
+def _ssm_step(lp, x, cfg, states: dict, i: int, sh=None):
     """Layer i's Mamba decode step; its new states are written into the
     stacked state leaves ``states`` in place."""
     x, new = _ssm_layer(lp, x, cfg, state={k: t[i] for k, t in
-                                            states.items()})
+                                            states.items()}, sh=sh)
     for k, t in states.items():
         t[i].copy_(new[k])
     return x
 
 
+def _cache_len(cache, cache_dim, sh) -> int:
+    """The k/v cache's global length (its time axis is per-layer dim 1)."""
+    n = cache["k"].shape[2]
+    return n * sh.m if cache_dim == 1 else n
+
+
 @torch.no_grad()
-def serve_step(params, cfg: ModelConfig, tokens, cache, index: int):
+def serve_step(params, cfg: ModelConfig, tokens, cache, index: int,
+               sh=None, cache_dim=None):
     """One decode step. tokens: [B] int; index: the host int position of
-    this token (the cache's current length).
+    this token (the cache's current length). Placed (``sh``): this rank's
+    rows and blocks of the params and cache (``cache_dim``: the per-layer
+    k/v dim on ``model``, 1 for S, 2 for K, 3 for hd, None whole).
 
     Writes the step's k/v and SSM states into ``cache`` in place; returns
     (logits [B, vocab_padded] fp32, cache). An index at or past the k/v
@@ -341,43 +423,57 @@ def serve_step(params, cfg: ModelConfig, tokens, cache, index: int):
     same at any position. An encoder has no decode step and raises."""
     check_family(cfg)
     _check_decodes(cfg)
-    if "k" in cache and not 0 <= int(index) < cache["k"].shape[2]:
+    if sh is not None:
+        P.check_tensor_parallel(cfg, sh.mesh)
+    if "k" in cache and not 0 <= int(index) < _cache_len(cache, cache_dim,
+                                                         sh):
         # before any layer writes its state into the cache
         raise IndexError(f"cache index {index} out of range for a cache "
-                         f"of length {cache['k'].shape[2]}")
+                         f"of length {_cache_len(cache, cache_dim, sh)}")
     B = tokens.shape[0]
-    x = L.embed_tokens(params["emb"], tokens[:, None], ACT_DTYPE)  # [B,1,D]
+    x = _embed(params, tokens[:, None], sh)                       # [B,1,D]
     positions = torch.full((B, 1), int(index), dtype=torch.int32,
                            device=x.device)
     layers = _layer_params(params["layers"], cfg.num_layers)
+    lsh, ssh = _layer_shards(sh)
     if cfg.family == "ssm":
         for i, lp in enumerate(layers):
-            x = _ssm_step(lp, x, cfg, cache, i)
+            x = _ssm_step(lp, x, cfg, cache, i, lsh)
     elif cfg.family == "hybrid":
         E = cfg.attn_every
         for g in range(_n_groups(cfg)):
             for i in range(g * E, (g + 1) * E):
-                x = _ssm_step(layers[i], x, cfg, cache["mamba"], i)
+                x = _ssm_step(layers[i], x, cfg, cache["mamba"], i, lsh)
             x = _cached_block(params["shared"], x, cfg, positions,
-                              cache["k"][g], cache["v"][g], index)
+                              cache["k"][g], cache["v"][g], index, ssh,
+                              cache_dim)
     else:
         for i, lp in enumerate(layers):
             x = _cached_block(lp, x, cfg, positions, cache["k"][i],
-                              cache["v"][i], index)
+                              cache["v"][i], index, lsh, cache_dim)
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
-    return L.logits_last(params["emb"], x[:, 0], cfg.vocab_size), cache
+    return _logits_last(params, cfg, x[:, 0], sh), cache
 
 
-def _prefill_block(lp, x, cfg, positions, causal: bool):
+def _prefill_block(lp, x, cfg, positions, causal: bool, sh=None,
+                   cache_dim=None):
     """An attention + MLP block over the prompt: (x, k, v), k/v in
-    ACT_DTYPE for the cache."""
+    ACT_DTYPE for the cache (placed: this rank's block on ``cache_dim``)."""
     B, S, _ = x.shape
+    lp = _whole(lp, sh)
     h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    q, k, v = L.project_qkv(lp["attn"], h, cfg, positions)
-    a = L.chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
-    x = x + a.reshape(B, S, -1) @ lp["attn"]["wo"].to(x.dtype)
+    if _tp(sh):
+        a, (k, v) = P.attention(sh["attn"], lp["attn"], h, cfg, positions,
+                                causal=causal)
+        x = x + a
+        if cache_dim is not None:
+            k, v = (P.block(t, cache_dim, sh) for t in (k, v))
+    else:
+        q, k, v = L.project_qkv(lp["attn"], h, cfg, positions)
+        a = L.chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+        x = x + a.reshape(B, S, -1) @ lp["attn"]["wo"].to(x.dtype)
     h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)[0], k.to(ACT_DTYPE), v.to(ACT_DTYPE)
+    return x + _ffn(lp, h, cfg, sh)[0], k.to(ACT_DTYPE), v.to(ACT_DTYPE)
 
 
 def _stack_states(states: list) -> dict:
@@ -386,17 +482,22 @@ def _stack_states(states: list) -> dict:
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, batch):
+def prefill(params, cfg: ModelConfig, batch, sh=None, cache_dim=None):
     """Forward the prompt and build the decode cache.
 
     Returns (logits [B, Vp] for the last position, cache for serve_step at
-    max_len = S; an encoder has no decode step and gets no cache)."""
-    x, positions, _, _ = _inputs_to_hidden(params, cfg, batch)
+    max_len = S; an encoder has no decode step and gets no cache). Placed
+    (``sh``): this rank's rows of the batch, and k/v cut to its block on
+    per-layer dim ``cache_dim`` (as ``serve_step``)."""
+    if sh is not None:
+        P.check_tensor_parallel(cfg, sh.mesh)
+    x, positions, _, _ = _inputs_to_hidden(params, cfg, batch, sh)
     layers = _layer_params(params["layers"], cfg.num_layers)
+    lsh, ssh = _layer_shards(sh)
     if cfg.family == "ssm":
         states = []
         for lp in layers:
-            x, st = _ssm_layer(lp, x, cfg, return_state=True)
+            x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh)
             states.append(st)
         cache = _stack_states(states)
     elif cfg.family == "hybrid":
@@ -404,12 +505,12 @@ def prefill(params, cfg: ModelConfig, batch):
         states, ks, vs = [], [], []
         for g in range(_n_groups(cfg)):
             for lp in layers[g * E:(g + 1) * E]:
-                x, st = _ssm_layer(lp, x, cfg, return_state=True)
+                x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh)
                 states.append(st)
             # the reference's hybrid prefill runs the shared block causal
             # with no QKV bias; the hybrid configs have none
             x, k, v = _prefill_block(params["shared"], x, cfg, positions,
-                                     causal=True)
+                                     True, ssh, cache_dim)
             ks.append(k)
             vs.append(v)
         cache = {"mamba": _stack_states(states), "k": torch.stack(ks),
@@ -417,13 +518,14 @@ def prefill(params, cfg: ModelConfig, batch):
     else:
         ks, vs = [], []
         for lp in layers:
-            x, k, v = _prefill_block(lp, x, cfg, positions, cfg.causal)
+            x, k, v = _prefill_block(lp, x, cfg, positions, cfg.causal, lsh,
+                                     cache_dim)
             ks.append(k)
             vs.append(v)
         cache = ({} if cfg.family == "encoder"
                  else {"k": torch.stack(ks), "v": torch.stack(vs)})
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
-    return L.logits_last(params["emb"], x[:, -1], cfg.vocab_size), cache
+    return _logits_last(params, cfg, x[:, -1], sh), cache
 
 
 # ---------------------------------------------------------------------------
@@ -444,11 +546,12 @@ def _module_of(tree) -> nn.Module:
 class Model(nn.Module):
     """A parameter tree held as ``nn.Parameter``s (sharing the tree's
     storage), named by their tree paths (``layers.attn.wq``); ``forward``
-    is ``loss_fn``."""
+    is ``loss_fn`` (placed by ``sh`` when given)."""
 
-    def __init__(self, cfg: ModelConfig, params):
+    def __init__(self, cfg: ModelConfig, params, sh=None):
         super().__init__()
         self.cfg = cfg
+        self.sh = sh
         for k, v in params.items():
             self.add_module(k, _module_of(v))
 
@@ -456,4 +559,4 @@ class Model(nn.Module):
         return T.unflatten(self.named_parameters())
 
     def forward(self, batch):
-        return loss_fn(self.tree(), self.cfg, batch)
+        return loss_fn(self.tree(), self.cfg, batch, self.sh)

@@ -90,45 +90,94 @@ def route(p, x, cfg) -> Routing:
     return Routing(logits, gates, topv, topi, slot, keep, dest)
 
 
-def apply_moe(p, x, cfg):
-    """x: [B, S, D] -> ([B, S, D], aux_losses dict)."""
+def apply_moe(p, x, cfg, sh=None):
+    """x: [B, S, D] -> ([B, S, D], aux_losses dict). Placed (``sh``, a
+    ``parallel.Shards``; x this rank's rows): the load-balancing loss
+    takes the batch's mean gates and routed fractions, and with a
+    ``model`` axis > 1 routing and its losses run on every rank, then the
+    sum of the ranks' parts (see ``models/parallel.py``)."""
     B, S, D = x.shape
     E, k = _n_experts(cfg), cfg.moe_top_k
-    C = moe_capacity(S, cfg)
-    dt = x.dtype
     r = route(p, x, cfg)
 
     # --- load-balancing + z losses (Switch-style) ---
     me = torch.mean(r.gates, dim=(0, 1))                        # [E]
     ce = torch.mean(F.one_hot(r.topi, E).sum(2).to(torch.float32),
                     dim=(0, 1))                                 # frac routed
+    if sh is not None:       # the batch's means, not the rank's rows'
+        me, ce = sh.batch_mean(me), sh.batch_mean(ce)
     aux_loss = E * torch.sum(me * ce)
     z_loss = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
+    aux = {"moe_aux": aux_loss, "moe_z": z_loss}
+    if sh is not None and sh.tp:
+        return _parallel_moe(sh, p, x, cfg, r), aux
 
-    # --- scatter tokens to [B, E*C (+1 spare), D] expert buffers ---
+    expert_in, flat = _dispatch(x, r, cfg)
+    out = _combine(_experts(p, expert_in), r.topv, r, flat, x)
+    if cfg.num_shared_experts:
+        out = out + apply_mlp(p["shared"], x, cfg)
+    return out, aux
+
+
+def _dispatch(x, r: Routing, cfg):
+    """Tokens scattered to [B, E, C, D] expert buffers, and each choice's
+    flat row in the [B * (E*C + 1), D] buffers with a spare drop row."""
+    B, S, D = x.shape
+    E, k = _n_experts(cfg), cfg.moe_top_k
+    C = moe_capacity(S, cfg)
     rows = E * C + 1
     flat = (r.dest + rows * torch.arange(B, device=x.device)[:, None]
             ).reshape(-1)
     xk = x.repeat_interleave(k, dim=1).reshape(B * S * k, D)  # [B*S*k, D]
-    buf = torch.zeros((B * rows, D), dtype=dt, device=x.device)
+    buf = torch.zeros((B * rows, D), dtype=x.dtype, device=x.device)
     buf = buf.index_add(0, flat, xk).reshape(B, rows, D)
-    expert_in = buf[:, :-1].reshape(B, E, C, D)
+    return buf[:, :-1].reshape(B, E, C, D), flat
 
-    # --- expert FFN (swiglu) ---
+
+def _experts(p, expert_in):
+    """The experts' SwiGLU FFN over their buffers [B, E', C, D]."""
+    dt = expert_in.dtype
     h = torch.einsum("becd,edf->becf", expert_in, p["wi"].to(dt))
     g = torch.einsum("becd,edf->becf", expert_in, p["wg"].to(dt))
     h = F.silu(g) * h
-    expert_out = torch.einsum("becf,efd->becd", h, p["wo"].to(dt))
+    return torch.einsum("becf,efd->becd", h, p["wo"].to(dt))
 
-    # --- gather back (the spare row reads 0) + combine with the gates ---
-    padded = torch.cat([expert_out.reshape(B, E * C, D),
+
+def _combine(expert_out, topv, r: Routing, flat, x):
+    """Gather the experts' outputs back (the spare row reads 0) and weight
+    each kept choice by its gate."""
+    B, S, D = x.shape
+    k = r.topi.shape[-1]
+    dt = x.dtype
+    padded = torch.cat([expert_out.reshape(B, -1, D),
                         torch.zeros((B, 1, D), dtype=dt, device=x.device)],
                        dim=1)
-    back = padded.reshape(B * rows, D).index_select(0, flat)
-    wts = (r.topv.reshape(B, S * k) * r.keep.to(torch.float32)).to(dt)
-    out = (back.reshape(B, S * k, D) * wts[..., None]).reshape(
+    back = padded.reshape(-1, D).index_select(0, flat)
+    wts = (topv.reshape(B, S * k) * r.keep.to(torch.float32)).to(dt)
+    return (back.reshape(B, S * k, D) * wts[..., None]).reshape(
         B, S, k, D).sum(dim=2)
 
+
+def _parallel_moe(sh, p, x, cfg, r: Routing):
+    """The experts as a sum over ``model``: each rank runs its experts
+    over all tokens (``expert`` placed on ``model``), or every expert over
+    its d_ff columns (``mlp`` on ``model``), or (neither divides) a ragged
+    share of the experts; the shared experts are an MLP part."""
+    from repro_torch.launch.mesh import copy_to, reduce_from
+    from . import parallel as P
+    x = copy_to(sh.mesh, "model", x)
+    topv = copy_to(sh.mesh, "model", r.topv)
+    expert_in, flat = _dispatch(x, r, cfg)
+    E = expert_in.shape[1]
+    if sh.model_dim("wi") == 2:                   # d_ff on model
+        out = _experts(p, expert_in)
+    else:
+        parts = P.ranges(E, sh.m)
+        lo, hi = parts[sh.r]
+        mine = {n: P.take(sh, n, p[n], 0, parts) for n in ("wi", "wg", "wo")}
+        out = F.pad(_experts(mine, expert_in[:, lo:hi]),
+                    (0, 0, 0, 0, lo, E - hi))
+    out = _combine(out, topv, r, flat, x)
     if cfg.num_shared_experts:
-        out = out + apply_mlp(p["shared"], x, cfg)
-    return out, {"moe_aux": aux_loss, "moe_z": z_loss}
+        out = out + P.mlp_part(sh["shared"], p["shared"], x, cfg)
+    return reduce_from(sh.mesh, "model", out)

@@ -51,18 +51,43 @@ def init_opt_state(params) -> dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    total = None
-    for x in T.leaves(tree):
+def global_norm(tree, pspecs=None, mesh=None) -> torch.Tensor:
+    """The l2 norm over every leaf of ``tree``. Placed (``pspecs`` and
+    ``mesh``): each leaf is this rank's block, its sum of squares is
+    summed over the mesh axes its pspec names (a leaf no axis splits is
+    counted once), one all-reduce per set of axes. Leaves placed on no
+    axis of size > 1 add up in tree order, as unplaced."""
+    if pspecs is None:
+        total = None
+        for x in T.leaves(tree):
+            s = torch.sum(torch.square(x.to(torch.float32)))
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+    from repro_torch.launch.mesh import all_reduce_sum_
+    groups = {}
+    for x, spec in zip(T.leaves(tree), T.leaves(pspecs)):
+        axes = tuple(sorted({a for s in spec if s is not None
+                             for a in (s if isinstance(s, tuple) else (s,))
+                             if mesh.shape[a] > 1}))
         s = torch.sum(torch.square(x.to(torch.float32)))
-        total = s if total is None else total + s
+        groups[axes] = s if axes not in groups else groups[axes] + s
+    total = None
+    for axes in sorted(groups):
+        s = groups[axes].reshape(1).contiguous()
+        for a in axes:
+            s = all_reduce_sum_(mesh, a, s)
+        total = s[0] if total is None else total + s[0]
     return torch.sqrt(total)
 
 
-def apply_updates(params, grads, state, cfg: OptConfig):
-    """Returns (new_params, new_state, metrics)."""
+def apply_updates(params, grads, state, cfg: OptConfig, pspecs=None,
+                  mesh=None):
+    """Returns (new_params, new_state, metrics). Placed params (``pspecs``
+    and ``mesh``): every leaf is this rank's block, the moments take the
+    params' pspecs, and the clipping norm is ``global_norm``'s over the
+    whole leaves."""
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads, pspecs, mesh)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gn, 1e-9), 1.0)
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)

@@ -355,8 +355,11 @@ def test_prefill_and_serve_step_factories(f32_acts):
     held = cache["k"]
     out, cache = step(tree, toks[:, 0], cache, 8)
     assert cache["k"] is held and bool(held[:, :, 8].any())
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        TSt.make_serve_step(TR.get_config("qwen2-moe-a2.7b"), shape, mesh)
+    # qwen2-moe's full config places its params with FSDP (meta shapes
+    # only here): data on the largest named dim left
+    _, fpsp, _ = TSt.make_serve_step(TR.get_config("qwen2-moe-a2.7b"),
+                                     shape, mesh)
+    assert fpsp["layers"]["moe"]["wi"] == (None, "model", "data")
     vcfg = TR.get_smoke_config("internvl2-76b")
     vpre, _, vcsp = TSt.make_prefill_step(vcfg, mesh, ShapeConfig(
         "p", 16, 2, "prefill"))

@@ -45,6 +45,7 @@ from repro.optim import adamw as RA
 from repro_torch import interop, tree as TT
 from repro_torch.configs import registry as TR
 from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.distopt import compression as TC
 from repro_torch.kernels import blockselect as KB
 from repro_torch.kernels import compact as KC
 from repro_torch.kernels import seeds as KS
@@ -381,12 +382,15 @@ def test_partition_rules_decay_and_exchange_leaves(arch):
         assert sum(t.numel() for t in flat.values()) == 2_422_670_240
     else:
         # falcon-mamba's largest leaves are 2^31 rows: past the exchange's
-        # int32 keys (and its full config shards with FSDP, not ported)
+        # int32 keys, which raises (its full config shards with FSDP, so
+        # at data > 1 a rank samples a block of half of them)
         assert flat["layers.mamba.wx"].numel() == 2 ** 31
         assert sum(t.numel() for t in flat.values()) == 7_272_665_088
-        with pytest.raises(NotImplementedError, match="FSDP"):
-            TSt.make_train_step(cfg, TA.OptConfig(), TMe.Mesh(
-                (1, 1), ("data", "model"), device=CPU))
+        with pytest.raises(ValueError, match="int32 keys"):
+            TC._sample_leaf(torch.zeros(1).expand(2 ** 31), 256, 0, 0.01)
+        _, specs = TSt.make_train_step(cfg, TA.OptConfig(), TMe.Mesh(
+            (1, 1), ("data", "model"), device=CPU))
+        assert "data" in specs["params"]["layers"]["mamba"]["wx"]
     tcfg = TR.get_smoke_config(arch)
     params = TT.tree_map(torch.ones_like,
                          TM.init_model(tcfg, seed=0, device=CPU)[0])

@@ -341,10 +341,12 @@ def test_train_main_trains_granite_moe_with_the_exchange():
     assert all(np.isfinite(v) and v > 0 for v in losses.values())
     assert int(state["opt"]["step"]) == 3
     assert int(state["tel"].valid.sum()) == 12
-    # qwen2-moe's full config shards its params with FSDP, not ported yet
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        TSt.make_train_step(TR.get_config("qwen2-moe-a2.7b"), TA.OptConfig(),
-                            TMe.Mesh((1, 1), ("data", "model"), device=CPU))
+    # qwen2-moe's full config places its params and moments with FSDP
+    _, specs = TSt.make_train_step(
+        TR.get_config("qwen2-moe-a2.7b"), TA.OptConfig(),
+        TMe.Mesh((1, 1), ("data", "model"), device=CPU))
+    assert specs["opt"]["m"]["layers"]["moe"]["wi"] == (None, "model",
+                                                         "data")
 
 
 @pytest.mark.parametrize("leaf", ["wi", "router"])

@@ -1,0 +1,730 @@
+"""The port's FSDP and tensor-parallel placement across 8 CPU processes over
+gloo, on the reference's own (pod 2, data 2, model 2) mesh (one spawn for
+the module; the workers import only ``repro_torch``, the comparisons with
+the JAX package run here on their pickled results):
+
+  * tests/test_distribution.py at its own mesh, qwen2-1.5b's smoke config:
+    6 dense steps (l[-1] < 0.6 l[0]), 6 compressed steps with k = 512,
+    min_size = 1024 (< 0.8 l[0]) and microbatch 2 (within 5e-2 of the
+    dense first loss); the losses equal on every rank;
+  * the JAX package's unsharded math (``loss_fn``, ``jax.value_and_grad``
+    and ``apply_updates`` on the global batch, activations in float32)
+    against 3 placed steps: at (1, 2, 2) with ``fsdp=True`` for the dense
+    (qwen2), moe (qwen2-moe) and vlm (internvl2) smoke configs, and the
+    encoder (hubert) at (1, 1, 2). Losses rtol 1e-5, ``grad_norm`` rtol
+    1e-5, params rtol 1e-4 / atol 1e-6 after 3 AdamW updates: every
+    element whose gradient is resolved in every step (as
+    tests/test_torch_encoder_vlm.py defines it), and at most 1 % of a leaf
+    off the bar at all;
+  * the middle-of-a-head split of ``wk``/``wv``: gemma-2b's smoke config
+    (kv 1 x hd 32) at model 2 and qwen2-1.5b's (kv 2 x hd 16) at model 4,
+    prefill logits rtol 1e-5 against ``RM.prefill``;
+  * sequence-parallel decode at (1, 1, 2): internvl2's smoke prefill and 4
+    ``make_serve_step`` steps from index frontend_tokens + prompt + t
+    (the cache placed on S) against ``RM.serve_step``, logits rtol 1e-5
+    and the greedy tokens equal; qwen2's at a 7-token prompt, where the
+    cache rule picks hd (the gathered case);
+  * the per-shard exchange: each rank's block of a leaf placed on dim 1
+    over ``model`` through ``RC._sample_leaf`` (keys and valid exact,
+    weights exact, probs within PROB_ULP), and the merged block within
+    rtol 1e-5 / atol 1e-7 of the formula on the reference's slabs;
+  * ``place`` then ``unplace`` is the identity; an FSDP rank at data 2
+    holds at most half of the params and moments plus the leaves the rule
+    leaves whole over ``data``;
+  * elastic restart: the dense run's state saved at (2, 2, 2) restores at
+    (1, 1, 1) and at (1, 2, 2) with FSDP bit for bit, and a step runs
+    finite on each.
+
+The whole file costs about a minute: the workers run one thread each.
+"""
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import registry as RR
+from repro.distopt import compression as RC
+from repro.launch import sharding as RSh
+from repro.launch import steps as RSt
+from repro.models import model as RM
+from repro.optim import adamw as RA
+
+from repro_torch.configs import registry as TR
+from repro_torch.distopt import compression as TC
+from repro_torch.launch import sharding as TSh
+from repro_torch.launch import steps as TSt
+from repro_torch.models import model as TM
+from repro_torch.optim import adamw as TA
+from repro_torch import tree as TT
+from tests.torch_parity import PROB_ULP, assert_ulp
+
+ROOT = Path(__file__).resolve().parents[1]
+WORLD = 8
+GRAD_REL = 1e-5
+FSDP_ARCHS = ("qwen2-1.5b", "qwen2-moe-a2.7b", "internvl2-76b")
+ENCODER = "hubert-xlarge"
+VLM = "internvl2-76b"
+EX_K, EX_STEP, EX_SHAPE = 64, 5, (200, 100)
+OPT = dict(total_steps=60, warmup_steps=3, peak_lr=5e-3)
+
+_WORKER = textwrap.dedent("""
+    import dataclasses, pickle, sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
+                              sys.argv[3], sys.argv[4])
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    from repro_torch import interop, tree as TT
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.distopt.compression import exchange_grads
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+
+    inp = pickle.load(open(f"{out}/inputs.pkl", "rb"))
+    AX = ("pod", "data", "model")
+    cpu = "cpu"
+    # every rank builds every mesh, in one order (groups are collective)
+    full = Mesh((2, 2, 2), AX, device=cpu)
+    lo4 = Mesh((1, 2, 2), AX, device=cpu, ranks=range(0, 4))
+    hi4 = Mesh((1, 2, 2), AX, device=cpu, ranks=range(4, 8))
+    m4 = Mesh((1, 1, 4), AX, device=cpu, ranks=range(0, 4))
+    enc2 = Mesh((1, 1, 2), AX, device=cpu, ranks=(4, 5))
+    dec2 = Mesh((1, 1, 2), AX, device=cpu, ranks=(6, 7))
+    gem2 = Mesh((1, 1, 2), AX, device=cpu, ranks=(0, 1))
+    one = Mesh((1, 1, 1), AX, device=cpu, ranks=(0,))
+    res = {"rank": rank, "coords": full.coords}
+    opt = adamw.OptConfig(**inp["opt"])
+
+    def numpy_tree(tree):
+        return {p: x.detach().numpy().copy() for p, x in TT.flatten(tree)}
+
+    # --- tests/test_distribution.py at (2, 2, 2), bf16 activations -----
+    cfg = get_smoke_config("qwen2-1.5b")
+    params, _ = Mod.init_model(cfg, seed=0, device=cpu)
+    batch = {"tokens": torch.from_numpy(inp["dist_tokens"])}
+    mirror = adamw.OptConfig(total_steps=50, warmup_steps=2, peak_lr=5e-3)
+    for name, kw, steps in (("dense", {}, 6),
+                            ("compressed",
+                             {"compress": dict(k=512, min_size=1024)}, 6),
+                            ("microbatch", {"microbatch": 2}, 1)):
+        step, specs = St.make_train_step(cfg, mirror, full, **kw)
+        st = Sh.place({"params": params, "opt": adamw.init_opt_state(
+            params)}, specs, full)
+        losses = []
+        for _ in range(steps):
+            st, m = step(st, batch)
+            losses.append(float(m["loss"]))
+        res[name] = losses
+        if name == "dense":
+            saved_specs = specs
+            saved = st
+    shardings, _ = St.state_shardings(cfg, full)
+    # the save gathers one whole leaf at a time: count, at each gather,
+    # the earlier gathered leaves still alive on this rank
+    import weakref
+    gathered, alive = [], []
+    whole_of = Sh.whole_of
+
+    def counting_whole_of(*a, **kw):
+        alive.append(sum(r() is not None for r in gathered))
+        x = whole_of(*a, **kw)
+        if x is not a[0]:          # a leaf no axis splits comes back as is
+            gathered.append(weakref.ref(x))
+        return x
+    Sh.whole_of = counting_whole_of
+    try:
+        CheckpointManager(f"{out}/ck").save(6, saved, shardings=shardings)
+    finally:
+        Sh.whole_of = whole_of
+    res["save_gathers"] = (len(alive), len(gathered), max(alive),
+                           len(TT.leaves(saved)))
+    whole = Sh.unplace(saved, saved_specs, full)
+    res["saved"] = numpy_tree(whole)
+    res["place_unplace"] = all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            TT.flatten(Sh.unplace(Sh.place(whole, saved_specs, full),
+                                  saved_specs, full)), TT.flatten(whole)))
+
+    # --- the per-shard exchange: a leaf placed on dim 1 over model -----
+    pod = full.coords["pod"]
+    g = np.random.default_rng(pod).standard_normal(@EX_SHAPE@).astype(
+        np.float32)
+    g[np.random.default_rng(10 + pod).random(@EX_SHAPE@) < 0.1] = 0.0
+    block = Sh.block_of(torch.from_numpy(g), (None, "model"), full)
+    got, wires = exchange_grads(
+        full, {"big": block, "small": torch.full((100,), float(pod + 1))},
+        @EX_STEP@, k=@EX_K@, min_size=1024, return_wires=True)
+    res["exchange"] = {"big": got["big"].numpy(), "small":
+                       got["small"].numpy(), "wire": wires["big"].numpy()}
+
+    # --- 3 placed steps in fp32 against the JAX package ----------------
+    Mod.ACT_DTYPE = torch.float32
+
+    def three_steps(arch, mesh, fsdp):
+        cfg = dataclasses.replace(get_smoke_config(arch), fsdp=fsdp)
+        tree = interop.model_params_from_arrays(cfg, inp["params"][arch],
+                                                device=cpu)
+        step, specs = St.make_train_step(cfg, opt, mesh)
+        st = Sh.place({"params": tree, "opt": adamw.init_opt_state(tree)},
+                      specs, mesh)
+        losses, norms = [], []
+        for b in inp["batches"][arch]:
+            st, m = step(st, {k: torch.from_numpy(v) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out_ = {"losses": losses, "grad_norm": norms,
+                "params": numpy_tree(Sh.unplace(st["params"],
+                                                specs["params"], mesh))}
+        if fsdp:
+            nbytes = lambda t: sum(x.numel() * x.element_size()
+                                   for x in TT.leaves(t))
+            whole_ = Sh.unplace(st, specs, mesh)
+            kept = sum(x.numel() * x.element_size() for x, s in zip(
+                TT.leaves({"p": whole_["params"], "m": whole_["opt"]["m"],
+                           "v": whole_["opt"]["v"]}),
+                TT.leaves({"p": specs["params"], "m": specs["opt"]["m"],
+                           "v": specs["opt"]["v"]})) if "data" not in s)
+            mine = {"p": st["params"], "m": st["opt"]["m"],
+                    "v": st["opt"]["v"]}
+            out_["bytes"] = (nbytes(mine), nbytes({
+                "p": whole_["params"], "m": whole_["opt"]["m"],
+                "v": whole_["opt"]["v"]}), kept)
+        return out_
+
+    if lo4.member:
+        for arch in ("qwen2-1.5b", "internvl2-76b"):
+            r = three_steps(arch, lo4, True)
+            if lo4.rank == 0 or arch == "qwen2-1.5b":
+                res[f"fsdp {arch}"] = r
+    if hi4.member:
+        res["fsdp qwen2-moe-a2.7b"] = three_steps("qwen2-moe-a2.7b", hi4,
+                                                  True)
+    if enc2.member:
+        res["tp hubert-xlarge"] = three_steps("hubert-xlarge", enc2, False)
+
+    # --- prefill with wk/wv split inside a head -------------------------
+    def prefill_logits(arch, mesh):
+        cfg = get_smoke_config(arch)
+        tree = interop.model_params_from_arrays(cfg, inp["params"][arch],
+                                                device=cpu)
+        pre, psp, _ = St.make_prefill_step(cfg, mesh)
+        logits, _ = pre(Sh.place(tree, psp, mesh),
+                        {"tokens": torch.from_numpy(inp["prompt"])})
+        return logits.numpy(), psp["layers"]["attn"]["wk"]
+    if m4.member:
+        res["midhead qwen2-1.5b"] = prefill_logits("qwen2-1.5b", m4)
+    if gem2.member:
+        res["midhead gemma-2b"] = prefill_logits("gemma-2b", gem2)
+
+    # --- decode: sequence-parallel (vlm) and the gathered hd case -------
+    def decode(arch, batch, steps=4):
+        cfg = get_smoke_config(arch)
+        tree = interop.model_params_from_arrays(cfg, inp["params"][arch],
+                                                device=cpu)
+        B = batch["tokens"].shape[0]
+        S = batch["tokens"].shape[1] + cfg.frontend_tokens
+        pre, psp, csp = St.make_prefill_step(
+            cfg, dec2, ShapeConfig("p", S, B, "prefill"))
+        pp = Sh.place(tree, psp, dec2)
+        logits, cache = pre(pp, {k: torch.from_numpy(v)
+                                 for k, v in batch.items()})
+        cache, csp2 = St.grow_placed_cache(cfg, cache, csp, steps, dec2)
+        serve, _, csp3 = St.make_serve_step(
+            cfg, ShapeConfig("d", S + steps, B, "decode"), dec2)
+        rec = {"prefill": logits.numpy(), "specs": (csp, csp2, csp3),
+               "tokens": [], "logits": []}
+        tok = logits.argmax(-1).to(torch.int32)
+        for t in range(steps):
+            rec["tokens"].append(tok.numpy())
+            logits, cache = serve(pp, tok, cache, S + t)
+            rec["logits"].append(logits.numpy())
+            tok = logits.argmax(-1).to(torch.int32)
+        return rec
+    if dec2.member:
+        res["decode internvl2-76b"] = decode("internvl2-76b",
+                                             inp["vlm_prompt"])
+        res["decode qwen2-1.5b"] = decode(
+            "qwen2-1.5b", {"tokens": inp["prompt"][:, :7]})
+
+    # --- elastic restart: restore the (2, 2, 2) state elsewhere ---------
+    Mod.ACT_DTYPE = torch.bfloat16
+
+    def restore(mesh, fsdp):
+        rcfg = dataclasses.replace(cfg, fsdp=fsdp)
+        step, specs = St.make_train_step(rcfg, mirror, mesh)
+        sh, _ = St.state_shardings(rcfg, mesh)
+        tpl = Sh.place({"params": params, "opt": adamw.init_opt_state(
+            params)}, specs, mesh)
+        got, at = CheckpointManager(f"{out}/ck").restore_latest(tpl, sh)
+        back = numpy_tree(Sh.unplace(got, specs, mesh))
+        _, m = step(got, batch)
+        return {"step": at, "state": back, "loss": float(m["loss"]),
+                "opt_step": int(got["opt"]["step"])}
+    if lo4.member:
+        r = restore(lo4, True)
+        if lo4.rank == 0:
+            res["restore 1x2x2"] = r
+    if one.member:
+        res["restore 1x1x1"] = restore(one, False)
+
+    dist.barrier()
+    with open(f"{out}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+""")
+for _k, _v in (("@EX_SHAPE@", str(EX_SHAPE)), ("@EX_K@", str(EX_K)),
+               ("@EX_STEP@", str(EX_STEP))):
+    _WORKER = _WORKER.replace(_k, _v)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _batch(cfg, B, S, seed):
+    """A numpy batch of S positions (an encoder's frames and labels, a
+    vlm's patches and S - frontend_tokens text tokens)."""
+    rng = np.random.default_rng(seed)
+    emb = lambda n: rng.standard_normal((B, n, cfg.d_model)).astype(
+        np.float32)
+    toks = lambda n: rng.integers(0, cfg.vocab_size, (B, n)).astype(
+        np.int32)
+    if cfg.family == "encoder":
+        return {"frames": emb(S), "labels": toks(S)}
+    if cfg.family == "vlm":
+        P = cfg.frontend_tokens
+        return {"patches": emb(P), "tokens": toks(S - P)}
+    return {"tokens": toks(S)}
+
+
+def _inputs():
+    archs = FSDP_ARCHS + (ENCODER, "gemma-2b")
+    params = {a: jax.tree.map(np.asarray, RM.init_model(
+        jax.random.PRNGKey(0), RR.get_smoke_config(a))[0]) for a in archs}
+    batches = {a: [_batch(RR.get_smoke_config(a), 8, 32, 10 + i)
+                   for i in range(3)] for a in FSDP_ARCHS + (ENCODER,)}
+    rng = np.random.default_rng(0)
+    vcfg = RR.get_smoke_config(VLM)
+    return {"opt": OPT, "params": params, "batches": batches,
+            "dist_tokens": rng.integers(0, 128, (8, 32)).astype(np.int32),
+            "prompt": rng.integers(0, 128, (2, 16)).astype(np.int32),
+            "vlm_prompt": _batch(vcfg, 2, 32, 7)}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("placement")
+    inp = _inputs()
+    with open(out / "inputs.pkl", "wb") as f:
+        pickle.dump(inp, f)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "1"
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _WORKER, str(r), str(WORLD), port, str(out)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(WORLD)]
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=400)
+            errs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(
+        e[-3000:] for e in errs)
+    ranks = [pickle.load(open(out / f"rank{r}.pkl", "rb"))
+             for r in range(WORLD)]
+    return inp, ranks
+
+
+@pytest.fixture(scope="module")
+def reference(run):
+    """The JAX package's unsharded 3 steps on the global batches, f32."""
+    inp, _ = run
+    old = RM.ACT_DTYPE
+    RM.ACT_DTYPE = jnp.float32
+    try:
+        out = {}
+        ropt = RA.OptConfig(**OPT)
+        for arch in FSDP_ARCHS + (ENCODER,):
+            rcfg = RR.get_smoke_config(arch)
+
+            @jax.jit
+            def ref_step(params, opt, batch, rcfg=rcfg):
+                (loss, _), grads = jax.value_and_grad(
+                    lambda p: RM.loss_fn(p, rcfg, batch), has_aux=True)(
+                        params)
+                new_p, new_opt, om = RA.apply_updates(params, grads, opt,
+                                                      ropt)
+                return new_p, new_opt, loss, om["grad_norm"], grads
+            params = jax.tree.map(jnp.asarray, inp["params"][arch])
+            opt = RA.init_opt_state(params)
+            losses, norms, resolved = [], [], {}
+            for b in inp["batches"][arch]:
+                params, opt, loss, gn, grads = ref_step(
+                    params, opt, {k: jnp.asarray(v) for k, v in b.items()})
+                losses.append(float(loss))
+                norms.append(float(gn))
+                for p, g in TT.flatten(jax.tree.map(np.asarray, grads)):
+                    ok = (np.abs(g) >= GRAD_REL * np.abs(g).max()) | (g == 0)
+                    resolved[p] = resolved.get(p, True) & ok
+            out[arch] = {"losses": losses, "grad_norm": norms,
+                         "resolved": resolved, "params": dict(TT.flatten(
+                             jax.tree.map(np.asarray, params)))}
+        return out
+    finally:
+        RM.ACT_DTYPE = old
+
+
+def _close(got, want, rel=1e-5, what=""):
+    want = np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    live = want > -1e29          # padded vocab rows are -1e30 on both
+    scale = float(np.abs(np.where(live, want, 0)).max())
+    gap = float(np.abs(np.where(live, got - want, 0)).max())
+    assert gap <= rel * max(scale, 1e-12), (what, gap, scale)
+
+
+# ------------------------------------ tests/test_distribution.py at (2,2,2)
+def test_multipod_dense_training_converges(run):
+    _, ranks = run
+    l = ranks[0]["dense"]
+    assert all(r["dense"] == l for r in ranks)
+    assert l[-1] < l[0] * 0.6
+
+
+def test_sampled_gradient_exchange_converges(run):
+    _, ranks = run
+    l = ranks[0]["compressed"]
+    assert all(r["compressed"] == l for r in ranks)
+    assert l[-1] < l[0] * 0.8
+
+
+def test_microbatch_matches_dense_loss(run):
+    _, ranks = run
+    assert all(r["microbatch"] == ranks[0]["microbatch"] for r in ranks)
+    assert abs(ranks[0]["microbatch"][0] - ranks[0]["dense"][0]) < 5e-2
+
+
+# -------------------------------------- placed steps vs the unsharded math
+def _placed_steps(run, reference, key, arch):
+    _, ranks = run
+    got = [r[key] for r in ranks if key in r]
+    ref = reference[arch]
+    for g in got:
+        assert g["losses"] == got[0]["losses"]
+    np.testing.assert_allclose(got[0]["losses"], ref["losses"], rtol=1e-5)
+    np.testing.assert_allclose(got[0]["grad_norm"], ref["grad_norm"],
+                               rtol=1e-5)
+    for path, want in ref["params"].items():
+        if path == "layers.attn.bk":
+            # a key bias shifts all of a query's scores alike, which the
+            # softmax cancels: its gradient is rounding noise on both
+            # sides (tests/test_torch_train.py skips it too)
+            continue
+        # every element whose gradient is resolved in all 3 steps within
+        # the bar; one whose nonzero gradient lies under GRAD_REL x its
+        # leaf's max in some step is rounding noise there, which Adam's
+        # normalised step scales up: at most 1 in 100 of a leaf may miss
+        ok = ref["resolved"][path]
+        have = got[0]["params"][path]
+        off = ~np.isclose(have, want, rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(have[ok], want[ok], rtol=1e-4, atol=1e-6,
+                                   err_msg=path)
+        assert off.mean() <= 0.01, (path, off.mean())
+    return got
+
+
+@pytest.mark.parametrize("arch", FSDP_ARCHS)
+def test_fsdp_steps_match_the_unsharded_reference(run, reference, arch):
+    """(1, 2, 2) with ``fsdp=True``: data and model placement at once."""
+    got = _placed_steps(run, reference, f"fsdp {arch}", arch)
+    if arch != VLM:
+        assert len(got) == 4
+
+
+def test_encoder_tensor_parallel_steps_match_the_reference(run, reference):
+    got = _placed_steps(run, reference, f"tp {ENCODER}", ENCODER)
+    assert len(got) == 2
+
+
+def test_fsdp_rank_holds_half_of_the_state(run):
+    """At data 2, each rank's params and moments: at most half of the
+    whole state plus the leaves the rule leaves whole over ``data``."""
+    _, ranks = run
+    for arch in ("qwen2-1.5b", "qwen2-moe-a2.7b"):
+        for r in ranks:
+            if f"fsdp {arch}" not in r:
+                continue
+            mine, total, kept = r[f"fsdp {arch}"]["bytes"]
+            assert mine <= (total - kept) / 2 + kept, (arch, mine, total)
+            assert mine < total / 2, (arch, mine, total)
+
+
+# ------------------------------------------------------- the mid-head split
+@pytest.mark.parametrize("arch,key,m", [("gemma-2b", "midhead gemma-2b", 2),
+                                        ("qwen2-1.5b", "midhead qwen2-1.5b",
+                                         4)])
+def test_kv_split_inside_a_head_matches_prefill(run, arch, key, m):
+    inp, ranks = run
+    rcfg = RR.get_smoke_config(arch)
+    old = RM.ACT_DTYPE
+    RM.ACT_DTYPE = jnp.float32
+    try:
+        want, _ = RM.prefill(jax.tree.map(jnp.asarray, inp["params"][arch]),
+                             rcfg, {"tokens": jnp.asarray(inp["prompt"])})
+    finally:
+        RM.ACT_DTYPE = old
+    got = [r[key] for r in ranks if key in r]
+    assert len(got) == m
+    kvd = rcfg.num_kv_heads * rcfg.head_dim
+    for logits, wk_spec in got:
+        # wk's flattened K x hd columns are placed on model: blocks of
+        # kvd / m < head_dim cut a head in two
+        assert wk_spec == (None, None, "model")
+        assert kvd % m == 0 and kvd // m < rcfg.head_dim
+        _close(logits, want, what=arch)
+
+
+# --------------------------------------------------- sequence-parallel decode
+@pytest.mark.parametrize("arch,dim", [(VLM, 2), ("qwen2-1.5b", 4)])
+def test_placed_decode_matches_the_reference(run, arch, dim):
+    """Prefill and 4 steps at (1, 1, 2): the cache on S (dim 2 of the
+    stacked [L, B, S, K, hd] cache: sequence-parallel) for the vlm, on hd
+    (dim 4, gathered per layer) for qwen2's 7-token prompt."""
+    inp, ranks = run
+    rcfg = RR.get_smoke_config(arch)
+    got = [r[f"decode {arch}"] for r in ranks if f"decode {arch}" in r]
+    assert len(got) == 2
+    rec = got[0]
+    for spec in rec["specs"][1:]:
+        assert spec["k"].index("model") == dim
+    batch = (inp["vlm_prompt"] if arch == VLM
+             else {"tokens": inp["prompt"][:, :7]})
+    S = batch["tokens"].shape[1] + rcfg.frontend_tokens
+    old = RM.ACT_DTYPE
+    RM.ACT_DTYPE = jnp.float32
+    try:
+        rp = jax.tree.map(jnp.asarray, inp["params"][arch])
+        logits, cache = RM.prefill(rp, rcfg, {k: jnp.asarray(v)
+                                              for k, v in batch.items()})
+        _close(rec["prefill"], logits, what="prefill")
+        cache = RM.grow_cache(rcfg, cache, 4)
+        step = jax.jit(lambda p, t, c, i: RM.serve_step(p, rcfg, t, c, i))
+        for t in range(4):
+            tok = rec["tokens"][t]
+            assert np.array_equal(tok, np.asarray(jnp.argmax(
+                logits, axis=-1)).astype(np.int32)), t
+            # the reference model's index: frontend_tokens + text + t
+            logits, cache = step(rp, jnp.asarray(tok), cache,
+                                 jnp.int32(S + t))
+            _close(rec["logits"][t], logits, what=f"step {t}")
+        assert np.array_equal(np.argmax(rec["logits"][-1], axis=-1),
+                              np.asarray(jnp.argmax(logits, axis=-1)))
+    finally:
+        RM.ACT_DTYPE = old
+    for r in got[1:]:
+        for a, b in zip(r["logits"], rec["logits"]):
+            np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------ the per-shard exchange
+def _pod_grad(pod):
+    g = np.random.default_rng(pod).standard_normal(EX_SHAPE).astype(
+        np.float32)
+    g[np.random.default_rng(10 + pod).random(EX_SHAPE) < 0.1] = 0.0
+    return g
+
+
+def test_exchange_samples_each_block_as_the_reference(run):
+    """Each rank's block (dim 1 over ``model``: a strided view of the
+    leaf, made contiguous) through ``RC._sample_leaf`` with its pod's seed
+    and keys over the block; the merge against the formula."""
+    _, ranks = run
+    half = EX_SHAPE[1] // 2
+    slabs = {}
+    for pod in (0, 1):
+        for m in (0, 1):
+            block = np.ascontiguousarray(
+                _pod_grad(pod)[:, m * half:(m + 1) * half])
+            seed = (17 + 0 * 1_000_003 + pod * 7919 + EX_STEP) & 0xFFFFFFFF
+            slabs[pod, m] = (block, RC._sample_leaf(
+                jnp.asarray(block), EX_K, jnp.uint32(seed), 0.01))
+    for r in ranks:
+        pod, m = r["coords"]["pod"], r["coords"]["model"]
+        wire = r["exchange"]["wire"]                  # [2 pods, 4, 3k]
+        est = []
+        for p in (0, 1):
+            _, sk = slabs[p, m]
+            np.testing.assert_array_equal(wire[p, 0], np.asarray(sk.keys))
+            np.testing.assert_array_equal(wire[p, 3] != 0,
+                                          np.asarray(sk.valid))
+            np.testing.assert_array_equal(wire[p, 1].view(np.float32),
+                                          np.asarray(sk.weights))
+            assert_ulp(sk.probs, wire[p, 2].view(np.float32), PROB_ULP,
+                       "probs")
+            e = np.zeros(EX_SHAPE[0] * half, np.float32)
+            v = np.asarray(sk.valid)
+            np.add.at(e, np.maximum(np.asarray(sk.keys), 0),
+                      np.where(v, np.asarray(sk.weights)
+                               / np.maximum(np.asarray(sk.probs), 1e-30),
+                               0.0).astype(np.float32))
+            est.append(e)
+        total = (np.zeros_like(est[0]) + est[0]) + est[1]
+        want = ((total - est[pod]) + slabs[pod, m][0].reshape(-1)) / \
+            np.float32(2)
+        np.testing.assert_allclose(r["exchange"]["big"].reshape(-1), want,
+                                   rtol=1e-5, atol=1e-7)
+        np.testing.assert_array_equal(r["exchange"]["small"],
+                                      np.full(100, 1.5, np.float32))
+
+
+def test_sample_leaf_refuses_int32_key_overflow():
+    """A block of 2^31 rows would wrap the int32 keys: it raises before
+    any work (an expanded input, so nothing of its size is allocated)."""
+    big = torch.zeros(1).expand(2 ** 31)
+    with pytest.raises(ValueError, match="2,147,483,648 rows"):
+        TC._sample_leaf(big, 256, 0, 0.01)
+    meta = torch.empty((2 ** 16, 2 ** 15), device="meta")
+    with pytest.raises(ValueError, match="int32 keys"):
+        TC._sample_leaf(meta, 256, 0, 0.01)
+
+
+# ------------------------------------------------------------ placement facts
+def test_place_then_unplace_is_the_identity(run):
+    _, ranks = run
+    assert all(r["place_unplace"] for r in ranks)
+
+
+class _FakeMesh:
+    def __init__(self, shape, coords=None):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+        self.coords = coords or {a: 0 for a in shape}
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_state_space_families_refuse_a_model_axis(arch):
+    cfg = TR.get_smoke_config(arch)
+    mesh = _FakeMesh({"pod": 1, "data": 1, "model": 2})
+    for make in (lambda: TSt.make_train_step(cfg, TA.OptConfig(), mesh),
+                 lambda: TSt.make_prefill_step(cfg, mesh),
+                 lambda: TSt.make_serve_step(
+                     cfg, TSt.ShapeConfig("d", 32, 2, "decode"), mesh)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.1b"):
+            make()
+
+
+def test_layout_hints_check_the_rank_blocks():
+    """``shard_tokens`` / ``shard_heads`` (the reference's GSPMD hints)
+    state the layout: a rank's rows of the batch and its block of heads;
+    they return the activation as it is, and raise on another layout."""
+    from repro_torch.models import layers as TL
+    mesh = _FakeMesh({"pod": 2, "data": 2, "model": 2})
+    x = torch.zeros(2, 4, 3, 5)
+    assert TL.shard_tokens(x, True, mesh, rows=8) is x
+    assert TL.shard_heads(x, True, mesh, heads=6) is x
+    assert TL.shard_heads(x, True, mesh, heads=5) is x   # 5 % 2: no check
+    assert TL.shard_tokens(x, False, mesh, rows=7) is x
+    with pytest.raises(ValueError, match="rows"):
+        TL.shard_tokens(x, True, mesh, rows=16)
+    with pytest.raises(ValueError, match="heads"):
+        TL.shard_heads(x, True, mesh, heads=8)
+
+
+def test_block_of_cuts_the_rank_block_of_each_placed_dim():
+    x = torch.arange(4 * 6 * 8).reshape(4, 6, 8)
+    mesh = _FakeMesh({"pod": 2, "data": 2, "model": 2},
+                     {"pod": 1, "data": 0, "model": 1})
+    got = TSh.block_of(x, (("pod", "data"), None, "model"), mesh)
+    assert torch.equal(got, x[2:3, :, 4:8]) and got.is_contiguous()
+    with pytest.raises(ValueError, match="does not split"):
+        TSh.block_of(x, (None, ("pod", "data", "model")), mesh)
+
+
+def test_serve_step_factories_place_params_as_the_reference():
+    """``make_prefill_step`` / ``make_serve_step`` give the reference's
+    ``param_shardings(..., fsdp=cfg.fsdp)`` specs for an FSDP config at
+    data 2, ``param_shardings`` / ``state_shardings`` bind them, and the
+    cache specs are ``cache_shardings``' rule."""
+    cfg, rcfg = (TR.get_config("qwen2-moe-a2.7b"),
+                 RR.get_config("qwen2-moe-a2.7b"))
+    assert cfg.fsdp
+    mesh = _FakeMesh({"data": 2, "model": 1})
+    shapes, specs = RSt.abstract_params(rcfg)
+    flat_specs = dict(TT.flatten(jax.tree.map(
+        lambda s: s, specs, is_leaf=lambda s: isinstance(s, tuple))))
+    want = {path: tuple(RSh.logical_to_pspec(spec, tuple(
+        dict(TT.flatten(shapes))[path].shape), mesh, fsdp=True))
+        for path, spec in flat_specs.items()}
+    shape = TSt.ShapeConfig("d", 512, 4, "decode")
+    _, psp, _ = TSt.make_prefill_step(cfg, mesh)
+    _, psp2, csp = TSt.make_serve_step(cfg, shape, mesh)
+    assert dict(TT.flatten(psp)) == want == dict(TT.flatten(psp2))
+    assert any("data" in s for s in want.values())
+    tshapes, tspecs = TM.abstract_params(cfg)
+    named = TSh.param_shardings(tspecs, tshapes, mesh, fsdp=True)
+    assert {p: s.spec for p, s in TT.flatten(named)} == want
+    st, _ = TSt.state_shardings(cfg, mesh)
+    assert st["opt"]["step"] == TSh.replicated(mesh)
+    assert st["opt"]["m"] == st["params"] == named
+    assert csp == TSh.cache_pspecs(TSt.cache_abstract(cfg, shape), cfg,
+                                   mesh)
+    assert {p: s.spec for p, s in TT.flatten(TSh.cache_shardings(
+        TSt.cache_abstract(cfg, shape), cfg, mesh))} == dict(
+            TT.flatten(csp))
+
+
+# ------------------------------------------------------------ elastic restart
+def test_placed_save_gathers_one_leaf_at_a_time(run):
+    """A placed save gathers each leaf whole once and drops it before the
+    next: on every rank but the writer no earlier gathered leaf is alive
+    at a gather (the writer keeps host copies, which on the CPU are the
+    gathered tensors themselves)."""
+    _, ranks = run
+    for r in ranks:
+        calls, split, live, leaves = r["save_gathers"]
+        assert calls == leaves and split > 0, (r["rank"], calls, split,
+                                               leaves)
+        if r["rank"] != 0:
+            assert live == 0, (r["rank"], live)
+
+
+@pytest.mark.parametrize("key", ["restore 1x1x1", "restore 1x2x2"])
+def test_elastic_restart_reshards(run, key):
+    """tests/test_system.py::test_elastic_restart_reshards across meshes:
+    saved at (2, 2, 2) (model 2), restored at (1, 1, 1) and at (1, 2, 2)
+    with FSDP; the restored state bit for bit, then a finite step."""
+    _, ranks = run
+    got = ranks[0][key]
+    assert got["step"] == 6 and got["opt_step"] == 6
+    saved = ranks[0]["saved"]
+    assert set(got["state"]) == set(saved)
+    for path, want in saved.items():
+        np.testing.assert_array_equal(got["state"][path], want, path)
+    assert np.isfinite(got["loss"])

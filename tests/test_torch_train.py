@@ -240,7 +240,8 @@ def test_mesh_layout_and_batch_slices():
     assert TSh.batch_slice(fake, 8) == slice(4, 6)
     with pytest.raises(ValueError, match="split"):
         TSh.batch_slice(fake, 6)
-    with pytest.raises(NotImplementedError, match="tensor parallel"):
+    # a model axis > 1 is placed now; at world size 1 it lacks processes
+    with pytest.raises(ValueError, match="processes"):
         TMe.Mesh((1, 2), ("data", "model"), device=CPU)
     with pytest.raises(ValueError, match="processes"):
         TMe.Mesh((2, 1), ("data", "model"), device=CPU)
@@ -340,8 +341,13 @@ def test_microbatch_matches_the_full_batch_loss(f32_acts):
     step({"params": params, "opt": TA.init_opt_state(params)},
          {"tokens": toks})
     assert seen == [0]
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        TSt.make_train_step(dataclasses.replace(cfg, fsdp=True), opt, mesh)
+    # FSDP at data 1 places every leaf whole: the same step
+    step, specs = TSt.make_train_step(dataclasses.replace(cfg, fsdp=True),
+                                      opt, mesh)
+    assert specs["params"]["layers"]["mlp"]["wi"] == (None, "data", "model")
+    _, m = step({"params": params, "opt": TA.init_opt_state(params)},
+                {"tokens": toks})
+    assert float(m["loss"]) == out[0]
 
 
 # ---------------------------------------------------- train.main, resume
@@ -419,8 +425,9 @@ def test_sigterm_checkpoints_and_exits_cleanly(tmp_path):
 
 def test_train_main_rejects_unported_families():
     """The encoder and vlm families train through ``train.main`` (their
-    smoke configs, 2 steps with the exchange); only internvl2-76b's full
-    config still raises, for its FSDP placement."""
+    smoke configs, 2 steps with the exchange); internvl2-76b's full config
+    places (FSDP) rather than raising, and only the state-space families
+    at a ``model`` axis > 1 still raise (their tensor parallelism)."""
     for arch in ("hubert-xlarge", "internvl2-76b"):
         losses = []
         state = TTr.main(["--device", "cpu", "--smoke", "--arch", arch,
@@ -430,9 +437,18 @@ def test_train_main_rejects_unported_families():
                          losses.append(float(kw["metrics"]["loss"])))
         assert len(losses) == 2 and np.all(np.isfinite(losses)), arch
         assert int(state["opt"]["step"]) == 2
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        TTr.main(["--device", "cpu", "--arch", "internvl2-76b", "--steps",
-                  "1"])
+    mesh = TMe.Mesh((1, 1), ("data", "model"), device=CPU)
+    _, specs = TSt.make_train_step(TR.get_config("internvl2-76b"),
+                                   TA.OptConfig(), mesh)
+    assert specs["params"]["layers"]["mlp"]["wi"] == (None, "data", "model")
+
+    class _Model2:
+        shape = {"data": 1, "model": 2}
+        axis_names = ("data", "model")
+        coords = {"data": 0, "model": 0}
+    with pytest.raises(NotImplementedError, match="inner"):
+        TSt.make_train_step(TR.get_smoke_config("zamba2-2.7b"),
+                            TA.OptConfig(), _Model2())
 
 
 def test_train_main_starts_its_own_process_group(tmp_path):
