@@ -186,7 +186,7 @@ Phases (any failure exits non-zero; nothing is caught):
    the port with the same seed in this process: (a) FSDP, qwen2-moe-a2.7b
    at full width cut to 2 layers (its config sets ``fsdp``; each step
    gathers every layer through the host), mesh (1, 2, 1) in 2 processes:
-   3 train steps at batch 8 x 128 (every step's loss and grad norm rtol
+   2 train steps at batch 8 x 128 (every step's loss and grad norm rtol
    1e-5; the first step's gradient within 1e-5 of each leaf's largest at
    4,096 sampled elements a leaf, read from the ranks' blocks; the MoE's
    top-k choices compared call by call, the flips printed with the least
@@ -197,7 +197,7 @@ Phases (any failure exits non-zero; nothing is caught):
    each rank's state bytes at most
    half of the one-process state plus the leaves the rule keeps whole,
    peak memory beside the one-process run's; then ``make_prefill_step``
-   at batch 4 x 128 and 8 greedy ``make_serve_step`` steps (logits rtol
+   at batch 4 x 128 and 2 greedy ``make_serve_step`` steps (logits rtol
    1e-5, greedy tokens equal); (b) tensor parallelism and the per-shard
    exchange, qwen2-1.5b at 2 layers, mesh (2, 1, 2) in 4 processes: 3
    compressed steps (k = 256, min_size 65,536), the first loss rtol 1e-5
@@ -206,9 +206,30 @@ Phases (any failure exits non-zero; nothing is caught):
    the formula over the gathered slabs, K1 and K2 timed at the largest
    block (emb.tok's [75,968, 1,536]); (c) gemma-2b and phi3-mini-3.8b at
    full width and depth, mesh (1, 1, 2) in 2 processes: prefill at batch
-   4 x 128 and 8 greedy decode steps (gemma's cache placed on hd, the
+   4 x 128 and 4 greedy decode steps (gemma's cache placed on hd, the
    gathered case; phi3's on S, sequence-parallel), logits rtol 1e-5 and
-   greedy tokens equal.
+   greedy tokens equal; (d) tensor parallelism over ``inner`` for the
+   state-space families at full width: falcon-mamba-7b cut to 2 layers
+   and zamba2-2.7b to 6 (one group: its shared attention block runs
+   once), mesh (1, 1, 2) in 2 processes: prefill at batch 4 x 512 and 8
+   greedy decode steps (the Mamba states placed by ``cache_pspecs``),
+   logits rtol 1e-5 and greedy tokens equal, each rank's param bytes
+   beside the one-process run's; then zamba2 at (2, 1, 2) in 4 processes,
+   2 steps with the exchange (k = 256, min_size 65,536): the first loss
+   within 1e-6 of the one-process run's (the second follows the
+   exchange, which samples each rank's block there), every K1 / K2
+   launch held against its plain version at the call, a Mamba block
+   ([6, 2560, 2560] of wx / wz / out_proj) among the sampled ones, and K1
+   and K2 timed at that block.
+12. the dry run against the card (``repro_torch.launch.dryrun``): (a) the
+   meta twin of 7a's step (qwen2-1.5b, batch 8 x 128, the exchange and
+   the telemetry fold, one process): its argument bytes equal to the
+   state and batch held on the card, its arguments plus temporaries
+   printed beside ``torch.cuda.max_memory_allocated`` over 4 steps of
+   the same step on the card, and its matmul FLOPs over the step's p50
+   as achieved TFLOP/s; (b) the production cell zamba2-2.7b x decode_32k
+   on (2, 16, 16) through the CLI in its own process: status ok, memory
+   and cost filled.
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
@@ -227,7 +248,10 @@ and K2's ``encoder_exchange_*`` keys their times at ``layers.mlp.wi``)
 and, last,
 ``{"ok": true, ...}``. Every row's ``placement_launches`` are 11b's run
 summed over its 4 ranks; K1's and K2's ``placement_block_*`` keys their
-times at 11b's largest block.
+times at 11b's largest block; every row's ``placement_ssm_launches`` are
+11d's training summed over its 4 ranks, and K1's and K2's
+``placement_ssm_block_*`` keys their times at 11d's largest Mamba
+block.
 """
 from __future__ import annotations
 
@@ -292,7 +316,7 @@ ENCODER_ARCH = "hubert-xlarge"      # phase 10: the encoder and vlm families
 ENCODER_STEPS = 4
 ENCODER_S = 1024                    # frames: ~20 s of audio at 50 Hz
 ENCODER_LONG_S = 32_768             # prefill_32k's length, batch cut to 1
-ENCODER_LONG_BUDGET_S = 60.0        # ... S cut to fit this wall time
+ENCODER_LONG_BUDGET_S = 30.0        # ... S cut to fit this wall time
 VLM_ARCH = "internvl2-76b"
 VLM_LAYERS = 8                      # depth cut from 80: 35.8 GB in fp32
 VLM_TRAFFIC = ["--batch", "8", "--prompt-len", "768", "--gen", "64"]
@@ -2967,11 +2991,25 @@ PLACE_FSDP_ARCH = "qwen2-moe-a2.7b"  # 11a: its config sets fsdp
 PLACE_TP_ARCH = "qwen2-1.5b"         # 11b
 PLACE_CARD_ARCHS = ("gemma-2b", "phi3-mini-3.8b")   # 11c, full depth
 # depth cut from 24 (11a) and 28 (11b): 11a's FSDP gathers every layer
-# through the host in each step (~0.75 GB/s of gloo on the card's host),
-# so its depth is what its time scales with
-PLACE_LAYERS = {"qwen2-moe-a2.7b": 2, "qwen2-1.5b": 2}
+# through the host in each step (~0.3 GB/s of gloo on the card's host),
+# so its depth is what its time scales with (at 1 layer a routing flip in
+# step 2 moves the loss past 1e-5)
+PLACE_LAYERS = {"qwen2-moe-a2.7b": 2, "qwen2-1.5b": 2,
+                # 11d: zamba2 keeps one group of attn_every = 6 layers, so
+                # its one shared attention block runs once
+                "falcon-mamba-7b": 2, "zamba2-2.7b": 6}
 PLACE_STEPS = 3
-PLACE_SERVE = (4, 128, 8)            # batch, prompt, decode steps
+PLACE_FSDP_STEPS = 2                 # 11a: ~40-50 s a step through gloo
+PLACE_SERVE = (4, 128, 4)            # batch, prompt, decode steps
+# 11a's: an FSDP decode step gathers every weight through the host
+# (~16 s a step at 2 layers), so 2 steps, to fit 11d and 12 in the time
+PLACE_FSDP_SERVE = (4, 128, 2)
+PLACE_SSM_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b")   # 11d
+PLACE_SSM_SERVE = (4, 512, 8)
+PLACE_SSM_STEPS = 2
+# 11d's largest Mamba block: zamba2's wx / wz / out_proj over model 2
+# ([6, 2560, 5120] / 2 on d_inner)
+PLACE_SSM_BLOCK = (6, 2_560, 2_560)
 PLACE_SAMPLES = 4096                 # param elements held per leaf (11a)
 # a sampled param is held after a step where its gradient agreed with the
 # one-process run's within GRAD_AGREE (relative) in that step and every
@@ -3001,14 +3039,14 @@ def _place_cfg(arch: str):
     return cfg
 
 
-def _place_batches(torch, cfg, dev):
+def _place_batches(torch, cfg, dev, serve=PLACE_SERVE, steps=PLACE_STEPS):
     """The train batches (8 x 128 tokens, seeded) and the serving prompt
-    (PLACE_SERVE's batch x prompt), on ``dev``."""
+    (``serve``'s batch x prompt), on ``dev``."""
     gen = torch.Generator(device=dev).manual_seed(11)
     tok = lambda *s: torch.randint(0, cfg.vocab_size, s, generator=gen,
                                    device=dev, dtype=torch.int32)
-    B, S, _ = PLACE_SERVE
-    return [{"tokens": tok(8, 128)} for _ in range(PLACE_STEPS)], tok(B, S)
+    B, S, _ = serve
+    return [{"tokens": tok(8, 128)} for _ in range(steps)], tok(B, S)
 
 
 def _sample_idx(torch, n: int, dev):
@@ -3062,8 +3100,8 @@ def _merge_samples(ranks, key) -> dict:
     return out
 
 
-def _place_train(torch, cfg, mesh, dev, compress=None):
-    """PLACE_STEPS placed train steps from seed 0 (fp32 activations):
+def _place_train(torch, cfg, mesh, dev, compress=None, steps=PLACE_STEPS):
+    """``steps`` placed train steps from seed 0 (fp32 activations):
     {losses, grad_norm, step seconds, state bytes, the bytes of the leaves
     the rule leaves whole over data, peak GiB, block samples
     (``_block_samples``) of each step's gradient ("grads") and of the
@@ -3078,8 +3116,7 @@ def _place_train(torch, cfg, mesh, dev, compress=None):
     from repro_torch.optim import adamw
     params, _ = Mod.init_model(cfg, seed=0, device=dev)
     shapes = Mod.abstract_params(cfg)[0]
-    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1,
-                          total_steps=PLACE_STEPS)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1, total_steps=steps)
     grads_seen, routes = [], []
 
     def grad_hook(grads, params_, step):
@@ -3102,7 +3139,7 @@ def _place_train(torch, cfg, mesh, dev, compress=None):
     del params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    batches, _ = _place_batches(torch, cfg, dev)
+    batches, _ = _place_batches(torch, cfg, dev, steps=steps)
     out = {"losses": [], "grad_norm": [], "sec": [], "params": [],
            "bytes": _state_bytes(TT, state),
            # the leaves the rule leaves whole over data (params, m, v)
@@ -3131,15 +3168,17 @@ def _place_train(torch, cfg, mesh, dev, compress=None):
     return out
 
 
-def _place_serve(torch, cfg, mesh, dev, params=None):
-    """make_prefill_step at PLACE_SERVE's batch x prompt, grow_placed_cache
+def _place_serve(torch, cfg, mesh, dev, params=None, serve=PLACE_SERVE):
+    """make_prefill_step at ``serve``'s batch x prompt, grow_placed_cache
     and greedy make_serve_step steps (fp32 activations): {prefill logits,
-    per-step logits and tokens (host), cache pspecs, ms, peak GiB}."""
+    per-step logits and tokens (host), cache pspecs (prefill, decode), the
+    rank's param bytes, ms, peak GiB}."""
+    from repro_torch import tree as TT
     from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.launch import sharding as Sh
     from repro_torch.launch import steps as St
     from repro_torch.models import model as Mod
-    B, S, G = PLACE_SERVE
+    B, S, G = serve
     if params is None:
         params, _ = Mod.init_model(cfg, seed=0, device=dev)
     pre, psp, csp = St.make_prefill_step(cfg, mesh,
@@ -3148,7 +3187,7 @@ def _place_serve(torch, cfg, mesh, dev, params=None):
     del params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _, prompt = _place_batches(torch, cfg, dev)
+    _, prompt = _place_batches(torch, cfg, dev, serve)
     t0 = time.perf_counter()
     logits, cache = pre(placed, {"tokens": prompt})
     torch.cuda.synchronize()
@@ -3158,8 +3197,9 @@ def _place_serve(torch, cfg, mesh, dev, params=None):
                                                          "decode"), mesh)
     _check(csp2 == csp3, f"{cfg.name}: grown cache specs {csp2} != {csp3}")
     rec = {"prefill": logits.cpu(), "logits": [], "tokens": [],
-           "specs": (csp["k"], csp2["k"]), "prefill_ms": pre_ms,
-           "step_ms": []}
+           "specs": (csp, csp2), "prefill_ms": pre_ms, "step_ms": [],
+           "bytes": sum(x.numel() * x.element_size()
+                        for x in TT.leaves(placed))}
     tok = logits.argmax(-1).to(torch.int32)
     for t in range(G):
         rec["tokens"].append(tok.cpu())
@@ -3327,17 +3367,29 @@ def _place_worker(sub: str, rank: int, world: int, port: str,
     if sub == "a":
         cfg = _place_cfg(PLACE_FSDP_ARCH)
         mesh = Mesh((1, 2, 1), AX3, device=dev)
-        res["train"] = _place_train(torch, cfg, mesh, dev)
-        res["serve"] = _place_serve(torch, cfg, mesh, dev)
+        res["train"] = _place_train(torch, cfg, mesh, dev,
+                                    steps=PLACE_FSDP_STEPS)
+        res["serve"] = _place_serve(torch, cfg, mesh, dev,
+                                    serve=PLACE_FSDP_SERVE)
     elif sub == "b":
         res.update(_place_exchange_worker(torch, K, dev))
-    else:
+    elif sub == "c":
         mesh = Mesh((1, 1, 2), AX3, device=dev)
         for arch in PLACE_CARD_ARCHS:
             from repro_torch.configs.registry import get_config
             res[arch] = _place_serve(torch, get_config(arch), mesh, dev)
+    elif sub == "d":       # 11d: the Mamba blocks over inner, serving
+        mesh = Mesh((1, 1, 2), AX3, device=dev)
+        for arch in PLACE_SSM_ARCHS:
+            res[arch] = _place_serve(torch, _place_cfg(arch), mesh, dev,
+                                     serve=PLACE_SSM_SERVE)
+            torch.cuda.empty_cache()
+    else:                  # 11d: zamba2 trained with the exchange
+        res.update(_place_exchange_worker(
+            torch, K, dev, arch=PLACE_SSM_ARCHS[1], steps=PLACE_SSM_STEPS,
+            formula=False))
     if rank != 0:          # rank 0 carries the gathered logits
-        for key in ("serve", *PLACE_CARD_ARCHS):
+        for key in ("serve", *PLACE_CARD_ARCHS, *PLACE_SSM_ARCHS):
             if key in res:
                 res[key] = {k: v for k, v in res[key].items()
                             if k not in ("logits", "prefill")}
@@ -3348,10 +3400,12 @@ def _place_worker(sub: str, rank: int, world: int, port: str,
     return 0
 
 
-def _place_exchange_worker(torch, K, dev):
-    """11b's rank: PLACE_STEPS compressed steps at (pod 2, data 1, model
-    2), every K1 (seeds only) and K2 launch checked against its plain
-    version at the call; then one leaf's exchange against the formula."""
+def _place_exchange_worker(torch, K, dev, arch=PLACE_TP_ARCH,
+                           steps=PLACE_STEPS, formula=True):
+    """11b's (11d's) rank: ``steps`` compressed steps of ``arch`` at (pod
+    2, data 1, model 2), every K1 (seeds only) and K2 launch checked
+    against its plain version at the call; then (``formula``) one leaf's
+    exchange against the formula."""
     from repro_torch import tree as TT
     from repro_torch.distopt import compression as CP
     from repro_torch.kernels import blockselect as kbs
@@ -3361,7 +3415,7 @@ def _place_exchange_worker(torch, K, dev):
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import model as Mod
     from repro_torch.optim import adamw
-    cfg = _place_cfg(PLACE_TP_ARCH)
+    cfg = _place_cfg(arch)
     mesh = Mesh((2, 1, 2), AX3, device=dev)
     errs = {"seeds": 0.0, "blockselect": 0.0}
     checked = {"seeds": 0, "blockselect": 0}
@@ -3389,14 +3443,13 @@ def _place_exchange_worker(torch, K, dev):
         torch.cuda.empty_cache()
         return got
     params, _ = Mod.init_model(cfg, seed=0, device=dev)
-    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1,
-                          total_steps=PLACE_STEPS)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1, total_steps=steps)
     step_fn, specs = St.make_train_step(cfg, opt, mesh, compress=dict(
         k=256, min_size=PLACE_MIN_SIZE))
     state = Sh.place({"params": params, "opt": adamw.init_opt_state(params)},
                      specs, mesh)
     del params
-    batches, _ = _place_batches(torch, cfg, dev)
+    batches, _ = _place_batches(torch, cfg, dev, steps=steps)
     ks.fused_seeds, kbs.batched_bottomk_select = (seeds_checked,
                                                   select_checked)
     K.reset_launch_counts()
@@ -3411,6 +3464,11 @@ def _place_exchange_worker(torch, K, dev):
     finally:
         ks.fused_seeds, kbs.batched_bottomk_select = k1, k2
     counts = K.launch_counts()
+    out = {"losses": losses, "sec": secs, "counts": counts,
+           "checked": checked, "errs": errs, "blocks": sorted(set(blocks)),
+           "bytes": _state_bytes(TT, state), "coords": mesh.coords}
+    if not formula:
+        return out
     # one block's exchange against the formula over the gathered slabs
     Mod.ACT_DTYPE = torch.float32
     sh = St.P.Shards(mesh, specs["params"])
@@ -3440,10 +3498,8 @@ def _place_exchange_worker(torch, K, dev):
         / np.float32(2)
     ex = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
                                                       np.float32(1e-30))))
-    return {"losses": losses, "sec": secs, "counts": counts,
-            "checked": checked, "errs": errs, "blocks": sorted(set(blocks)),
-            "exchange_leaf": (leaf, own.shape[0]), "exchange_max_rel": ex,
-            "coords": mesh.coords}
+    return {**out, "exchange_leaf": (leaf, own.shape[0]),
+            "exchange_max_rel": ex}
 
 
 def phase_placement(torch, K, dev, card: str):
@@ -3465,8 +3521,10 @@ def phase_placement(torch, K, dev, card: str):
         ranks = _spawn_place("a", 2)
         wall = time.perf_counter() - t0
         cfg = _place_cfg(PLACE_FSDP_ARCH)
-        twin_train = _place_train(torch, cfg, one, dev)
-        twin_serve = _place_serve(torch, cfg, one, dev)
+        twin_train = _place_train(torch, cfg, one, dev,
+                                  steps=PLACE_FSDP_STEPS)
+        twin_serve = _place_serve(torch, cfg, one, dev,
+                                  serve=PLACE_FSDP_SERVE)
         flips, first_flip, ggap, least, pgap = _hold_train(
             torch, [r["train"] for r in ranks], twin_train, "11a")
         for r in ranks:
@@ -3493,8 +3551,9 @@ def phase_placement(torch, K, dev, card: str):
               f"{[round(r['train']['peak_gib'], 2) for r in ranks]} vs "
               f"{twin_train['peak_gib']:.2f}, step s "
               f"{ranks[0]['train']['sec']} vs {twin_train['sec']}; "
-              f"prefill {PLACE_SERVE[0]} x {PLACE_SERVE[1]} + "
-              f"{PLACE_SERVE[2]} decode steps: logits within {serr:.3g}, "
+              f"prefill {PLACE_FSDP_SERVE[0]} x {PLACE_FSDP_SERVE[1]} + "
+              f"{PLACE_FSDP_SERVE[2]} decode steps: logits within "
+              f"{serr:.3g}, "
               f"greedy tokens equal, prefill ms "
               f"{ranks[0]['serve']['prefill_ms']:.1f} vs "
               f"{twin_serve['prefill_ms']:.1f}, decode ms/step p50 "
@@ -3560,8 +3619,9 @@ def phase_placement(torch, K, dev, card: str):
             err = _hold_serve(torch, ranks[0][arch], twin, f"11c {arch}")
             got = ranks[0][arch]
             print(f"11c {arch} full depth, mesh (1, 1, 2), 2 gloo "
-                  f"processes on {card}: cache pspecs {got['specs']} "
-                  f"(prefill, decode), logits within {err:.3g} of one "
+                  f"processes on {card}: cache pspecs "
+                  f"{[s['k'] for s in got['specs']]} (prefill, decode), "
+                  f"logits within {err:.3g} of one "
                   f"process, greedy tokens equal; prefill ms "
                   f"{got['prefill_ms']:.1f} vs {twin['prefill_ms']:.1f}, "
                   f"decode ms/step p50 {np.median(got['step_ms']):.1f} vs "
@@ -3571,10 +3631,233 @@ def phase_placement(torch, K, dev, card: str):
             del twin
             torch.cuda.empty_cache()
         print(f"11c wall {wall:.1f} s", flush=True)
+
+        # --- 11d: the state-space families over inner -------------------
+        ssm_stats, ssm_counts = phase_placement_ssm(torch, dev, card, one)
     finally:
         Mod.ACT_DTYPE = old
-    return ({name: {f"placement_block_{k}": v for k, v in s.items()}
-             for name, s in stats.items()}, counts)
+    return ({name: {**{f"placement_block_{k}": v for k, v in s.items()},
+                    **{f"placement_ssm_block_{k}": v
+                       for k, v in ssm_stats[name].items()}}
+             for name, s in stats.items()}, counts, ssm_counts)
+
+
+def _ssm_train_twin(torch, cfg, mesh, dev):
+    """11d's training in one process: PLACE_SSM_STEPS compressed steps
+    from seed 0 (the exchange at one pod returns its input): {losses,
+    state bytes}."""
+    from repro_torch import tree as TT
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1,
+                          total_steps=PLACE_SSM_STEPS)
+    step_fn, _ = St.make_train_step(cfg, opt, mesh, compress=dict(
+        k=256, min_size=PLACE_MIN_SIZE))
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    del params
+    losses = []
+    for b in _place_batches(torch, cfg, dev, steps=PLACE_SSM_STEPS)[0]:
+        state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+    out = {"losses": losses, "bytes": _state_bytes(TT, state)}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_placement_ssm(torch, dev, card: str, one):
+    """11d: falcon-mamba-7b (2 layers) and zamba2-2.7b (6 layers: one
+    shared attention block) at full width, mesh (1, 1, 2) in 2 processes:
+    prefill and greedy decode against the one-process run (logits rtol
+    1e-5, greedy tokens equal), the Mamba states placed by cache_pspecs;
+    then zamba2 trained with the exchange at (2, 1, 2) in 4 processes:
+    the first loss within 1e-6 of the one-process run's, every K1 / K2
+    launch held against its plain version at the call, on the ranks'
+    Mamba blocks among others; K1 and K2 timed at the largest Mamba
+    block. Returns (K1/K2 stats there, the training's launches summed
+    over its ranks)."""
+    from repro_torch import tree as TT
+    t0 = time.perf_counter()
+    ranks = _spawn_place("d", 2)
+    wall = time.perf_counter() - t0
+    for arch in PLACE_SSM_ARCHS:
+        cfg = _place_cfg(arch)
+        twin = _place_serve(torch, cfg, one, dev, serve=PLACE_SSM_SERVE)
+        err = _hold_serve(torch, ranks[0][arch], twin, f"11d {arch}")
+        got = ranks[0][arch]
+        states = [s.get("mamba", s) for s in got["specs"]]
+        for s in states:
+            _check(all("model" in sp for sp in s.values()),
+                   f"11d {arch}: Mamba states {s} not all on model")
+        print(f"11d {arch} at {cfg.num_layers} layers, full width "
+              f"({_n_params(TT, cfg):,} params), mesh (1, 1, 2), 2 gloo "
+              f"processes on {card}: Mamba state pspecs {states[1]}"
+              f"{' (k/v ' + str(got['specs'][1]['k']) + ')' if 'k' in got['specs'][1] else ''}, "
+              f"logits within {err:.3g} of one process over prefill "
+              f"{PLACE_SSM_SERVE[0]} x {PLACE_SSM_SERVE[1]} and "
+              f"{PLACE_SSM_SERVE[2]} decode steps, greedy tokens equal; "
+              f"param bytes per rank {[r[arch]['bytes'] for r in ranks]} "
+              f"vs {twin['bytes']}; prefill ms {got['prefill_ms']:.1f} vs "
+              f"{twin['prefill_ms']:.1f}, decode ms/step p50 "
+              f"{np.median(got['step_ms']):.1f} vs "
+              f"{np.median(twin['step_ms']):.1f}, peak GiB "
+              f"{[round(r[arch]['peak_gib'], 2) for r in ranks]} vs "
+              f"{twin['peak_gib']:.2f}", flush=True)
+        del twin
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _spawn_place("e", 4)
+    wall_e = time.perf_counter() - t0
+    cfg = _place_cfg(PLACE_SSM_ARCHS[1])
+    twin = _ssm_train_twin(torch, cfg, one, dev)
+    gap = abs(ranks[0]["losses"][0] - twin["losses"][0]) / abs(
+        twin["losses"][0])
+    _check(gap <= 1e-6, f"11d: first loss {ranks[0]['losses'][0]} vs one "
+           f"process {twin['losses'][0]} ({gap:.3g})")
+    counts = {k: sum(r["counts"][k] for r in ranks)
+              for k in ranks[0]["counts"]}
+    block = int(np.prod(PLACE_SSM_BLOCK))
+    for r in ranks:
+        _check(r["losses"] == ranks[0]["losses"], "11d: losses differ")
+        _check(all(np.isfinite(r["losses"])), "11d: losses not finite")
+        _check(r["checked"]["seeds"] == r["counts"]["seeds"] > 0
+               and r["checked"]["blockselect"]
+               == r["counts"]["blockselect"] > 0,
+               f"11d: rank {r['rank']} launches {r['counts']} vs checked "
+               f"{r['checked']}")
+        _check(block in r["blocks"], f"11d: rank {r['rank']} sampled no "
+               f"Mamba block of {block} rows ({r['blocks']})")
+    _check(max(max(r["blocks"]) for r in ranks) >= block,
+           "11d: largest block")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    g = torch.randn(block, generator=gen, device=dev)
+    stats = big_leaf_kernels(torch, dev, g, 17, f"11d on {card}: Mamba "
+                             f"block {PLACE_SSM_BLOCK}")
+    del g
+    torch.cuda.empty_cache()
+    print(f"11d zamba2-2.7b at {cfg.num_layers} layers, mesh (2, 1, 2), 4 "
+          f"gloo processes on {card}: compressed losses "
+          f"{ranks[0]['losses']} vs one process {twin['losses']} (first "
+          f"within {gap:.3g}; the second follows the exchange, which samples "
+          f"each rank's block here and whole leaves in one process), step s "
+          f"{ranks[0]['sec']}; state bytes per rank "
+          f"{[r['bytes'] for r in ranks]} vs {twin['bytes']}; K1/K2 "
+          f"launches {counts['seeds']}/{counts['blockselect']} over the "
+          f"ranks, each held against its plain version (max abs "
+          f"{max(r['errs']['seeds'] for r in ranks):.3g} / "
+          f"{max(r['errs']['blockselect'] for r in ranks):.3g}) on blocks "
+          f"of {ranks[0]['blocks']} rows; 11d walls {wall:.1f} s (serve) + "
+          f"{wall_e:.1f} s (train)", flush=True)
+    return stats, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the dry run against the card
+# ---------------------------------------------------------------------------
+
+DRY_CELL = ("zamba2-2.7b", "decode_32k")      # 12b, on (2, 16, 16)
+DRY_REPS = 4                                   # 12a's steps on the card
+
+
+def phase_dryrun(torch, dev, card: str):
+    """12a: the meta twin of 7a's step (qwen2-1.5b, batch 8 x 128, the
+    exchange at k = 256, the telemetry fold; one process) through
+    ``dryrun.measure_step``: its argument bytes equal the same state and
+    batch on the card exactly; its arguments plus temporaries beside
+    ``torch.cuda.max_memory_allocated`` over DRY_REPS steps of the same
+    step on the card; its matmul FLOPs over the step's p50 as achieved
+    TFLOP/s. 12b: one production cell, DRY_CELL on (2, 16, 16), through
+    the CLI in a process of its own (the Mamba-2 blocks at model 16,
+    across pods)."""
+    import os
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core import multisketch_empty
+    from repro_torch.launch import steps as St
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun import measure_step
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("7a", 128, 8, "train")
+    comp = dict(k=256, min_size=65536)
+    mem, hlo, walk = measure_step(cfg, shape, Mesh((1, 1, 1), AX3,
+                                                   device="meta"),
+                                  compress=comp, telemetry=train.TEL_SPEC)
+    step_fn, _ = St.make_train_step(cfg, adamw.OptConfig(),
+                                    Mesh((1, 1, 1), AX3, device=dev),
+                                    compress=comp, telemetry=train.TEL_SPEC)
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    state = {"params": params, "opt": adamw.init_opt_state(params),
+             "tel": multisketch_empty(train.TEL_SPEC, device=dev)}
+    del params
+    gen = torch.Generator(device=dev).manual_seed(12)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 128),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in tree_leaves((state, batch))
+                 if isinstance(x, torch.Tensor))
+    _check(nbytes == mem["argument_size_in_bytes"],
+           f"12a: the card holds {nbytes} bytes of state and batch, the "
+           f"meta twin counts {mem['argument_size_in_bytes']}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(DRY_REPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        _check(np.isfinite(float(m["loss"])), "12a: loss not finite")
+    peak = torch.cuda.max_memory_allocated()
+    del state, m
+    torch.cuda.empty_cache()
+    p50 = float(np.median(secs[1:]))
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    print(f"12a dry-run twin of 7a's step ({TRAIN_ARCH}, batch 8 x 128, "
+          f"exchange k = 256, telemetry fold; a {hlo['n_ops']:,}-op walk "
+          f"on meta in {walk:.1f} s): argument bytes {nbytes:,} on the "
+          f"card = {mem['argument_size_in_bytes']:,} counted; arguments + "
+          f"temporaries {predicted / 2 ** 30:.2f} GiB predicted vs "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB over "
+          f"{DRY_REPS} steps (ratio {predicted / peak:.4f}); matmul FLOPs "
+          f"{hlo['matmul_flops']:.6g} (all FLOPs {hlo['flops']:.6g}, HBM "
+          f"bytes {hlo['hbm_bytes']:.6g}) over the step's p50 "
+          f"{p50:.4f} s (steps {[round(s, 4) for s in secs]}) = "
+          f"{hlo['matmul_flops'] / p50 / 1e12:.3f} TFLOP/s achieved on "
+          f"{card}", flush=True)
+    out = tempfile.mkdtemp(prefix="chip_smoke_12_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRY_CELL[0], "--shape", DRY_CELL[1], "--multi-pod", "--out",
+         f"{out}/cell.json"], capture_output=True, text=True, env=env,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    _check(r.returncode == 0, f"12b: dry-run cell failed:\n"
+           f"{r.stderr[-3000:]}")
+    cell = json.loads(Path(f"{out}/cell.json").read_text())
+    _check(cell["status"] == "ok" and cell["hlo_cost"]["matmul_flops"] > 0
+           and cell["memory"]["argument_size_in_bytes"] > 0,
+           f"12b: cell {cell}")
+    mem_c, hlo_c = cell["memory"], cell["hlo_cost"]
+    print(f"12b dry run {DRY_CELL[0]} x {DRY_CELL[1]} x {cell['mesh']} "
+          f"(rank 0 of 512, a fake group; {wall:.1f} s with its process): "
+          f"status {cell['status']}, per-rank arguments "
+          f"{mem_c['argument_size_in_bytes'] / 1e9:.3f} GB + temporaries "
+          f"{mem_c['temp_size_in_bytes'] / 1e9:.3f} GB, matmul FLOPs "
+          f"{hlo_c['matmul_flops']:.6g}, HBM bytes {hlo_c['hbm_bytes']:.6g}, "
+          f"collectives {hlo_c['coll_ops']} ({hlo_c['coll_bytes']:.6g} "
+          f"bytes, {hlo_c['coll_bytes_xpod']:.6g} across pods); phase 12 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def member_triples(torch, sk):
@@ -3616,21 +3899,39 @@ def main() -> int:
           flush=True)
     dev = torch.device("cuda")
 
+    walls = []
+
+    def done(phase: str):
+        """Print the phase's wall time and the script's so far."""
+        walls.append(time.perf_counter())
+        print(f"phase {phase}: {walls[-1] - walls[-2]:.1f} s (script "
+              f"{walls[-1] - walls[0]:.1f} s)", flush=True)
+    walls.append(t0)
     kstats = phase_kernels(torch, C, K, dev)
     kstats["servicecost"] = phase_k5(torch, K, dev)
     kernel_attributes(K)
     kstats["rankcount"] = phase_k6(torch, C, K, dev)
+    done("0-1")
     counts = phase_serving(torch, C, K, pool_mod, query_mod)
     phase_durability(C, pool_mod)
     metric_counts = phase_metric(torch, C, K, dev)
     universal_counts = phase_universal(torch, C, K, dev)
     phase_scaleout(torch, C, K, pool_mod, query_mod, dev, card)
+    done("2-6")
     train_stats, train_counts = phase_train(torch, C, K, dev)
     phase_train_multiprocess(torch)
+    done("7")
     serve_counts, moe_stats, moe_counts = phase_serve(torch, K, dev, card)
+    done("8")
     ssm_counts, hybrid_counts, hybrid_stats = phase_ssm(torch, K, dev, card)
+    done("9")
     enc_counts, vlm_counts, enc_stats = phase_encoder_vlm(torch, K, dev, card)
-    place_stats, place_counts = phase_placement(torch, K, dev, card)
+    done("10")
+    place_stats, place_counts, place_ssm_counts = phase_placement(
+        torch, K, dev, card)
+    done("11")
+    phase_dryrun(torch, dev, card)
+    done("12")
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),
@@ -3658,7 +3959,8 @@ def main() -> int:
                      "encoder_train_launches": enc_counts[name],
                      "vlm_serve_launches": vlm_counts[name],
                      **place_stats.get(name, {}),
-                     "placement_launches": place_counts[name]})
+                     "placement_launches": place_counts[name],
+                     "placement_ssm_launches": place_ssm_counts[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

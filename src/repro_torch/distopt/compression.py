@@ -32,9 +32,10 @@ Selection runs K1 in its seeds-only mode, then K2 (``use_kernels``; their
 plain versions otherwise). Only the <= 3k member slots need f-values and
 probabilities, so those are formed after the members are known: at 385M
 rows this saves the [F, n] f-value and probability arrays. Members are
-gathered with ``torch.nonzero`` (index order, as the reference's stable
-``argsort(~member)``, in O(n) instead of a sort of n keys); the slots past
-the members are padding whose every field is masked.
+gathered with ``torch.nonzero_static`` (index order, as the reference's
+stable ``argsort(~member)``, in O(n) instead of a sort of n keys; its
+shape is fixed by the slots, so the exchange also runs on meta tensors);
+the slots past the members are padding whose every field is masked.
 """
 from __future__ import annotations
 
@@ -105,9 +106,9 @@ def _sample_leaf(g, k: int, seed: int, cap_frac: float,
     for f in range(spec.nf):
         member |= (seeds[f] <= kth[f]) & torch.isfinite(seeds[f])
     slots = min(spec.cap, n)         # a leaf under 3k rows has n slots
-    take = torch.nonzero(member).reshape(-1)[:slots]
-    valid = torch.arange(slots, device=dev) < take.shape[0]
-    take = torch.nn.functional.pad(take, (0, slots - take.shape[0]))
+    take = torch.nonzero_static(member, size=slots, fill_value=0
+                                ).reshape(-1)
+    valid = torch.arange(slots, device=dev) < member.sum()
     st = seeds[:, take]
     del seeds, member
     wt, at = wn[take], act[take]

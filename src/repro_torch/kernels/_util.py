@@ -166,6 +166,23 @@ def kernel_attrs(name: str) -> dict:
     return dict(regs=vals[0], local_bytes=vals[1], static_smem=vals[2])
 
 
+def on_meta(x: torch.Tensor) -> bool:
+    """True when a wrapper takes its meta branch (a dry run's meta
+    tensors): shapes out, bytes booked, nothing launched or computed."""
+    return x.device.type == "meta"
+
+
+def meta_call(name: str, inputs, outputs, ops: int = 0):
+    """A wrapper's meta branch (shapes only: no launch, no plain
+    version): books the kernel's bytes, its inputs read once and its
+    outputs written once, and ``ops`` operations to the active cost
+    recorder (``launch/cost.py``), and returns ``outputs``."""
+    from repro_torch.launch.cost import record_kernel
+    record_kernel(name, sum(t.numel() * t.element_size()
+                            for t in (*inputs, *outputs)), ops)
+    return outputs
+
+
 def check_cuda(name: str, x: torch.Tensor, dtype: torch.dtype,
                shape=None) -> torch.Tensor:
     """Validate a kernel operand: on CUDA, of ``dtype``, contiguous."""

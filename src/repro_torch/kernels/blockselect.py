@@ -28,9 +28,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels._util import (check_cuda, kernel_lib, pad_tail,
-                                       raise_on_error, round_up, stream_ptr,
-                                       tile_tickets)
+from repro_torch.kernels._util import (check_cuda, kernel_lib, meta_call,
+                                       on_meta, pad_tail, raise_on_error,
+                                       round_up, stream_ptr, tile_tickets)
 
 BLOCK = 2048
 SELECT_THREADS = 256        # select.cu: a block of 8 warps
@@ -71,10 +71,14 @@ def block_candidates(seeds: torch.Tensor, k: int):
     if seeds.device.type == "cpu":
         return block_candidates_plain(seeds, k)
     nf, n = seeds.shape
-    check_cuda("seeds", seeds, torch.float32)
     b = _span(n)
     kb = min(k, b)
     nb = -(-max(n, 1) // b)
+    if on_meta(seeds):
+        return meta_call("blockselect", (seeds,), (
+            torch.empty((nf, nb * kb), dtype=torch.float32, device="meta"),
+            torch.empty((nf, nb * kb), dtype=torch.int32, device="meta")))
+    check_cuda("seeds", seeds, torch.float32)
     vals = torch.empty((nf, nb * kb), dtype=torch.float32,
                        device=seeds.device)
     idx = torch.empty((nf, nb * kb), dtype=torch.int32, device=seeds.device)
@@ -198,10 +202,19 @@ def batched_bottomk_select(seeds: torch.Tensor, k: int):
     seeds [F, n] -> (vals [F, m] ascending, idx [F, m]; invalid slots =
     (+inf, -1)) and tau [F] = the (k+1)-th smallest seed per row (+inf if
     fewer). Like the reference, fewer than k columns come back when
-    n <= k. CPU -> the plain version; CUDA -> the global route.
+    n <= k. CPU -> the plain version; CUDA -> the global route; meta ->
+    the outputs' shapes, the kernel's bytes booked (``_util.meta_call``).
     """
     if seeds.device.type == "cpu":
         return batched_bottomk_select_plain(seeds, k)
+    if on_meta(seeds):
+        nf, n = seeds.shape
+        nb = -(-max(n, 1) // _span(n))
+        width = min(k, nb * min(k + 1, n))   # as select_from_candidates
+        return meta_call("blockselect", (seeds,), (
+            torch.empty((nf, width), dtype=torch.float32, device="meta"),
+            torch.empty((nf, width), dtype=torch.int32, device="meta"),
+            torch.empty((nf,), dtype=torch.float32, device="meta")))
     return global_select(seeds, k)
 
 

@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._util import (check_cuda, kernel_lib, pad_tail,
-                                       raise_on_error, stream_ptr)
+from repro_torch.kernels._util import (check_cuda, kernel_lib, meta_call,
+                                       on_meta, pad_tail, raise_on_error,
+                                       stream_ptr)
 from repro_torch.kernels.blockselect import (batched_bottomk_select,
                                              batched_bottomk_select_plain)
 
@@ -38,6 +39,9 @@ def retention_priority(sorted_keys, weights, member, keep):
     if sorted_keys.device.type == "cpu":
         return retention_priority_plain(sorted_keys, weights, member, keep)
     n = sorted_keys.shape[0]
+    if on_meta(sorted_keys):        # shapes and bytes only
+        return meta_call("compact", (sorted_keys, weights, member, keep), (
+            torch.empty((n,), dtype=torch.float32, device="meta"),))[0]
     check_cuda("sorted_keys", sorted_keys, torch.int32, (n,))
     check_cuda("weights", weights, torch.float32, (n,))
     check_cuda("member", member, torch.bool, (n,))

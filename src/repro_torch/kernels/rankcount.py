@@ -19,8 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._util import (check_cuda, kernel_lib,
-                                       raise_on_error, stream_ptr)
+from repro_torch.kernels._util import (check_cuda, kernel_lib, meta_call,
+                                       on_meta, raise_on_error, stream_ptr)
 
 PLAIN_PAIRS = 1 << 24       # pairs the plain version compares at a time
 _NOT_PART = torch.iinfo(torch.int64).max    # order key of a non-participant
@@ -143,6 +143,10 @@ def rank_counts(weights, s_h, s_l, active):
     if weights.device.type == "cpu":
         return rank_counts_plain(weights, s_h, s_l, active)
     n = weights.shape[0]
+    if on_meta(weights):            # shapes and bytes only
+        return meta_call("rankcount", (weights, s_h, s_l, active), tuple(
+            torch.empty((n,), dtype=torch.int32, device="meta")
+            for _ in range(2)))
     check_cuda("weights", weights, torch.float32, (n,))
     check_cuda("s_h", s_h, torch.float32, (n,))
     check_cuda("s_l", s_l, torch.float32, (n,))

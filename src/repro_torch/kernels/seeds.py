@@ -16,9 +16,9 @@ import torch
 
 from repro_torch.core.funcs import moment_pow
 from repro_torch.core.hashing import uniform01
-from repro_torch.kernels._util import (check_cuda, kernel_lib,
-                                       objective_arrays, raise_on_error,
-                                       stream_ptr)
+from repro_torch.kernels._util import (check_cuda, kernel_lib, meta_call,
+                                       objective_arrays, on_meta,
+                                       raise_on_error, stream_ptr)
 
 _SCHEMES = ("ppswor", "priority")
 
@@ -62,7 +62,8 @@ def seeds_and_fvals(keys, weights, active, objectives, scheme="ppswor",
     fvals [F, n] or None without ``want_fvals``) float32. CPU tensors take
     the plain version; CUDA tensors launch the kernel (counted in
     ``fused_seeds_fvals.launches``), which then writes no f-values at
-    all."""
+    all; meta tensors give the outputs' shapes and book the kernel's
+    bytes (``_util.meta_call``)."""
     if scheme not in _SCHEMES:
         raise ValueError(
             f"unknown scheme {scheme!r} (want 'priority' or 'ppswor')")
@@ -71,6 +72,12 @@ def seeds_and_fvals(keys, weights, active, objectives, scheme="ppswor",
         return fused_seeds_fvals_plain(keys, weights, active, objectives,
                                        scheme, seed, want_fvals)
     n = keys.shape[0]
+    if on_meta(keys):
+        out = torch.empty((len(objectives), n), dtype=torch.float32,
+                          device="meta")
+        outs = (out, torch.empty_like(out)) if want_fvals else (out,)
+        got = meta_call("seeds", (keys, weights, active), outs)
+        return got[0], got[1] if want_fvals else None
     check_cuda("keys", keys, torch.int32, (n,))
     check_cuda("weights", weights, torch.float32, (n,))
     check_cuda("active", active, torch.bool, (n,))

@@ -14,9 +14,10 @@ import ctypes
 import torch
 
 from repro_torch.core.predicates import PRED_COLS, predicate_matrix
-from repro_torch.kernels._util import (check_cuda, kernel_lib,
-                                       objective_arrays, raise_on_error,
-                                       stream_ptr, tile_tickets)
+from repro_torch.kernels._util import (check_cuda, kernel_lib, meta_call,
+                                       objective_arrays, on_meta,
+                                       raise_on_error, stream_ptr,
+                                       tile_tickets)
 from repro_torch.kernels.seeds import fval
 
 SLICE_TARGET = 512      # slots per slice the split aims at
@@ -61,6 +62,11 @@ def segment_query_slab(keys, weights, probs, member, table, objectives):
                                         objectives)
     c = keys.shape[0]
     b = table.shape[0]
+    if on_meta(keys):   # shapes, bytes and a multiply-add per
+        return meta_call(            # (slot, predicate, objective)
+            "segquery", (keys, weights, probs, member, table),
+            (torch.empty((len(objectives), b), dtype=torch.float32,
+                         device="meta"),), ops=2 * c * b * len(objectives))[0]
     check_cuda("keys", keys, torch.int32, (c,))
     check_cuda("weights", weights, torch.float32, (c,))
     check_cuda("probs", probs, torch.float32, (c,))

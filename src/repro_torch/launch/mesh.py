@@ -26,6 +26,15 @@ gloo take CPU tensors: the collectives here stage CUDA tensors through the
 host for them. torch's gloo backend has no reduce-scatter, so
 ``reduce_scatter_mean`` is an all-reduce and then the rank's slice, on every
 backend.
+
+Every collective over an axis of more than one rank is booked to the
+active cost recorder (``launch/cost.py``) as (kind, operand bytes, whether
+its group crosses pods). ``init_dry_group`` sets up the default group of a
+dry run: torch's ``fake`` backend at the production world size (256 or
+512), so that ``make_production_mesh`` lays out the real mesh with its
+real axis groups in one process, rank 0, and every collective returns at
+once (on meta tensors it moves nothing). The default group lives as long
+as the process, so a dry run takes a process of its own.
 """
 from __future__ import annotations
 
@@ -36,8 +45,21 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.launch.cost import record_collective
 
 AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def init_dry_group(world: int):
+    """Initialise the default group as rank 0 of ``world`` on torch's
+    ``fake`` backend (no peers: every collective completes at once).
+    Raises if a default group exists."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a default process group already exists: a dry "
+                           "run needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 def ensure_process_group(device: torch.device):
@@ -140,9 +162,20 @@ def _staged(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def _book(mesh: Mesh, axis: str, kind: str, x: torch.Tensor):
+    """Book a collective over ``axis`` (more than one rank) to the cost
+    recorder: only the pod axis's groups cross pods."""
+    if mesh.shape[axis] > 1:
+        record_collective(kind, x.numel() * x.element_size(),
+                          axis == "pod")
+
+
 def all_reduce_mean_(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     """``x`` (contiguous) becomes its mean over the ranks along ``axis``:
     the sum, then one division. Returns ``x``."""
+    if mesh.shape[axis] == 1:
+        return x
+    _book(mesh, axis, "all-reduce", x)
     y = _staged(mesh, axis, x)
     dist.all_reduce(y, group=mesh.group(axis))
     y.div_(mesh.shape[axis])
@@ -166,6 +199,7 @@ def all_reduce_max_(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
 def _all_reduce_(mesh, axis, x, op):
     if mesh.shape[axis] == 1:
         return x
+    _book(mesh, axis, "all-reduce", x)
     y = _staged(mesh, axis, x)
     dist.all_reduce(y, op=op, group=mesh.group(axis))
     if y is not x:
@@ -174,6 +208,7 @@ def _all_reduce_(mesh, axis, x, op):
 
 
 def _gathered(mesh, axis, x) -> list:
+    _book(mesh, axis, "all-gather", x)
     y = _staged(mesh, axis, x)
     out = [torch.empty_like(y) for _ in range(mesh.shape[axis])]
     dist.all_gather(out, y, group=mesh.group(axis))
@@ -182,7 +217,9 @@ def _gathered(mesh, axis, x) -> list:
 
 def all_gather(mesh: Mesh, axis: str, x: torch.Tensor) -> torch.Tensor:
     """[m, *x.shape]: ``x`` of every rank along ``axis``, in coordinate
-    order, on x's device."""
+    order, on x's device (a copy of ``x`` on an axis of size 1)."""
+    if mesh.shape[axis] == 1:
+        return torch.stack([x])
     return torch.stack(_gathered(mesh, axis, x)).to(x.device)
 
 
@@ -209,6 +246,7 @@ def reduce_scatter_sum(mesh: Mesh, axis: str, x: torch.Tensor,
     n = mesh.shape[axis]
     if n == 1:
         return x
+    _book(mesh, axis, "all-reduce", x)
     if mesh.stages_through_host(axis) and x.device.type != "cpu":
         y = x.to("cpu").contiguous()      # the host copy is the buffer
     else:

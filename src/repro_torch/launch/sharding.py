@@ -191,7 +191,9 @@ def _split(mesh, axes) -> tuple:
 
 def block_of(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of a whole leaf ``x`` under ``spec``, contiguous
-    (a copy unless nothing is split)."""
+    (a copy unless nothing is split: a block that is a contiguous slice,
+    as one row's, would otherwise be a view that keeps the whole alive)."""
+    whole = x
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
@@ -201,7 +203,9 @@ def block_of(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
                              f"into {n} blocks ({axes})")
         size = x.shape[dim] // n
         x = x.narrow(dim, i * size, size)
-    return x.contiguous()
+    if x.shape == whole.shape:
+        return x.contiguous()
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def whole_of(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:

@@ -29,6 +29,7 @@ from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core.multi_sketch import (MultiSketchSpec,
                                            multisketch_absorb_inline)
 from repro_torch.launch import sharding as Sh
+from repro_torch.launch.cost import unrecorded
 from repro_torch.launch.mesh import all_gather_dim, all_reduce_mean_
 from repro_torch.launch.summary import multisketch_shape
 from repro_torch.models import layers as L
@@ -103,11 +104,6 @@ def state_shardings(cfg: ModelConfig, mesh, telemetry=None):
     return out, shapes
 
 
-def _check_placement(cfg: ModelConfig, mesh):
-    Mod.check_family(cfg)
-    P.check_tensor_parallel(cfg, mesh)
-
-
 def _gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
     """The ranks' rows (their ``batch_slice``s) of the global batch, whole
     on every rank: gathered over data, then pod."""
@@ -132,13 +128,17 @@ def _rows(mesh, n: int):
     return Sh.batch_slice(mesh, n) if n % _nrows(mesh) == 0 else slice(0, n)
 
 
-def _cache_dim(cfg, mesh, batch: int, length: int):
+def _cache_dims(cfg, mesh, batch: int, length: int):
     """(cache pspecs of a [batch, length] cache, the per-layer k/v dim
-    placed on ``model`` or None)."""
-    specs = Sh.cache_pspecs(Mod.make_cache(cfg, batch, length,
-                                           device="meta"), cfg, mesh)
-    kv = specs.get("k", ())
-    return specs, (kv.index("model") - 1 if "model" in kv else None)
+    placed on ``model`` or None, {Mamba state leaf: its per-layer dim on
+    ``model`` or None})."""
+    with unrecorded():                     # a meta cache, for its shapes
+        specs = Sh.cache_pspecs(Mod.make_cache(cfg, batch, length,
+                                               device="meta"), cfg, mesh)
+    dim = lambda sp: sp.index("model") - 1 if "model" in sp else None
+    states = specs.get("mamba", {} if "k" in specs else specs)
+    return (specs, dim(specs.get("k", ())),
+            {k: dim(sp) for k, sp in states.items()})
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
@@ -160,7 +160,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
     (the reference folds on its plain path; the two give identical
     slabs).
     """
-    _check_placement(cfg, mesh)
+    Mod.check_family(cfg)
     st_specs = state_specs(cfg, mesh, telemetry)
     psp = st_specs["params"]
     # under the sampled exchange a pod's loss is over the pod's batch
@@ -228,7 +228,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
                                    cfg.constrain_acts, mesh, n)
                  for k, v in batch.items()}
         if compressed is not None:
-            loss, metrics, grads = compressed(params, local, int(opt_step))
+            # the step seeds the exchange; a meta state (a dry run) has no
+            # value to read, and its cost does not depend on it
+            step_no = 0 if opt_step.is_meta else int(opt_step)
+            loss, metrics, grads = compressed(params, local, step_no)
         else:
             loss, metrics, grads = compute_grads(params, local)
             if "pod" in mesh.axis_names:
@@ -268,7 +271,7 @@ def make_prefill_step(cfg: ModelConfig, mesh,
     forward and gives the cache {}). ``params`` are this rank's blocks
     (``sharding.place`` by the param pspecs), ``batch`` the global batch;
     the cache comes back placed by the cache pspecs of its own shape."""
-    _check_placement(cfg, mesh)
+    Mod.check_family(cfg)
     p, specs = Mod.abstract_params(cfg)
     psp = Sh.param_pspecs(specs, p, mesh, fsdp=cfg.fsdp)
     sh = P.Shards(mesh, psp)
@@ -276,12 +279,12 @@ def make_prefill_step(cfg: ModelConfig, mesh,
     def step_fn(params, batch):
         n = next(iter(batch.values())).shape[0]
         local = {k: v[_rows(mesh, n)] for k, v in batch.items()}
-        dim = None
+        dim = states = None
         if cfg.family != "encoder":
             S = sum(v.shape[1] for k, v in batch.items()
                     if k in ("tokens", "patches"))
-            dim = _cache_dim(cfg, mesh, n, S)[1]
-        logits, cache = Mod.prefill(params, cfg, local, sh, dim)
+            _, dim, states = _cache_dims(cfg, mesh, n, S)
+        logits, cache = Mod.prefill(params, cfg, local, sh, dim, states)
         if n % _nrows(mesh) == 0:
             logits = _gather_rows(mesh, logits)
         return logits, cache
@@ -300,16 +303,17 @@ def make_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh):
     index) -> (logits [B, Vp], cache)`` takes this rank's param blocks,
     the global tokens [B] and the cache placed by the cache pspecs, and
     writes into ``cache`` in place (``Mod.serve_step``)."""
-    _check_placement(cfg, mesh)
+    Mod.check_family(cfg)
     p, specs = Mod.abstract_params(cfg)
     psp = Sh.param_pspecs(specs, p, mesh, fsdp=cfg.fsdp)
     sh = P.Shards(mesh, psp)
-    csp, dim = _cache_dim(cfg, mesh, shape.global_batch, shape.seq_len)
+    csp, dim, states = _cache_dims(cfg, mesh, shape.global_batch,
+                                   shape.seq_len)
 
     def step_fn(params, tokens, cache, index):
         n = tokens.shape[0]
         logits, cache = Mod.serve_step(params, cfg, tokens[_rows(mesh, n)],
-                                       cache, index, sh, dim)
+                                       cache, index, sh, dim, states)
         if n % _nrows(mesh) == 0:
             logits = _gather_rows(mesh, logits)
         return logits, cache

@@ -33,6 +33,15 @@ it short, and its first decode step then fails on a shape mismatch).
 
 Input projections are stored unfused (z / x / B / C / dt), each output dim
 on the "inner" logical axis where it is d_inner wide, as the reference's.
+
+Tensor parallelism over "inner" (``models/parallel.py`` ``mamba``) runs
+these same functions on a rank's block of the d_inner channels, through
+``part``: an object whose hooks mark where the block meets the other
+ranks (``enter``: the input every rank reads; ``shared``: values every
+rank computes whole and then uses for its channels only; ``sum``: a
+partial product summed over the ranks; ``out``: the block's output
+summed) and which heads a rank's channels belong to (``heads``). Without
+``part`` (one process, or ``model`` 1) nothing changes.
 """
 from __future__ import annotations
 
@@ -171,24 +180,30 @@ def _m1_chunk(h, xc_, dt_c, B_c, C_c, A):
     return h_last.clone(), y          # a copy: the view would hold h_all
 
 
-def apply_mamba1(p, x, cfg, state=None, return_state=False):
+def apply_mamba1(p, x, cfg, state=None, return_state=False, part=None):
     """Full-seq (state=None) or single-step decode (state given).
 
     state: dict(conv=[B,K-1,di], h=[B,di,N]). Returns (y, new_state).
     return_state: full-seq prefill — also return the final recurrent state.
+    part: a rank's block of the channels (``p`` and ``state`` hold its
+    channels; see the module's docstring).
     """
     B, S, D = x.shape
-    di, N = cfg.d_inner, cfg.ssm_state
+    N = cfg.ssm_state
+    di = p["A_log"].shape[0]             # d_inner, or a rank's block of it
     R = max(D // 16, 1)
     dt_ = x.dtype
-    z = x @ p["wz"].to(dt_)
-    xs = x @ p["wx"].to(dt_)
+    x_in = x if part is None else part.enter(x)
+    z = x_in @ p["wz"].to(dt_)
+    xs = x_in @ p["wx"].to(dt_)
     A = -torch.exp(p["A_log"])                                   # [di,N]
 
     if state is None:
         nC, Ck = _chunk_plan(S, cfg.ssm_chunk)
         xc = F.silu(_causal_conv(xs, p["conv_w"], p["conv_b"]))
         proj = xc @ p["x_proj"].to(dt_)
+        if part is not None:              # x_proj contracts over inner
+            proj = part.sum(proj)
         dt_raw, Bc, Cc = torch.split(proj, [R, N, N], dim=-1)
         dt = F.softplus(dt_raw.to(_F32) @ p["dt_proj"]
                         + p["dt_bias"])                          # [B,S,di]
@@ -206,6 +221,8 @@ def apply_mamba1(p, x, cfg, state=None, return_state=False):
                                     p["conv_b"])
         xc = F.silu(xc)
         proj = xc @ p["x_proj"].to(dt_)
+        if part is not None:
+            proj = part.sum(proj)
         dt_raw, Bc, Cc = torch.split(proj, [R, N, N], dim=-1)
         dt = F.softplus(dt_raw.to(_F32) @ p["dt_proj"]
                         + p["dt_bias"])                          # [B,di]
@@ -217,7 +234,8 @@ def apply_mamba1(p, x, cfg, state=None, return_state=False):
         new_state = {"conv": conv_state, "h": h}
 
     y = y * F.silu(z if state is None else z[:, :1])
-    return y @ p["out_proj"].to(dt_), new_state
+    out = y @ p["out_proj"].to(dt_)
+    return (out if part is None else part.out(out)), new_state
 
 
 def mamba1_state(cfg, batch: int, dtype=_F32, device=None):
@@ -262,11 +280,16 @@ def init_mamba2(init: Init, cfg, lead=()):
     return p, s
 
 
-def _m2_gated_out(p, y, z, cfg, dt_):
+def _m2_gated_out(p, y, z, cfg, dt_, part=None):
     y = y * F.silu(z.to(_F32))
-    var = torch.mean(torch.square(y), dim=-1, keepdim=True)
+    if part is None:
+        var = torch.mean(torch.square(y), dim=-1, keepdim=True)
+    else:                 # the mean over all of d_inner: the ranks' sums
+        var = part.sum(torch.sum(torch.square(y), dim=-1, keepdim=True)
+                       ) / cfg.d_inner
     y = y * torch.rsqrt(var + cfg.norm_eps) * p["norm_scale"]
-    return y.to(dt_) @ p["out_proj"].to(dt_)
+    out = y.to(dt_) @ p["out_proj"].to(dt_)
+    return out if part is None else part.out(out)
 
 
 def _m2_chunk(h, xc, Bk, Ckk, dtc, la):
@@ -288,13 +311,30 @@ def _m2_chunk(h, xc, Bk, Ckk, dtc, la):
     return h_out, y
 
 
-def apply_mamba2(p, x, cfg, state=None, return_state=False):
-    """SSD block. state: dict(conv_x, conv_B, conv_C, h=[B,H,hd,N])."""
+def _m2_heads(part, cfg, Bc, Cc, dt, A, D):
+    """(heads, head width, B, C, dt, A, D) of the channels this block
+    holds: every head, or a rank's (``part``), whose shared values enter
+    through ``part.shared`` and whose per-head values are taken by global
+    head index."""
+    if part is None:
+        return cfg.ssm_heads, cfg.ssm_head_dim, Bc, Cc, dt, A, D
+    Bc, Cc, dt, A, D = (part.shared(t) for t in (Bc, Cc, dt, A, D))
+    idx = part.heads(cfg, dt.device)
+    return (idx.shape[0], part.width, Bc, Cc, dt.index_select(-1, idx),
+            A.index_select(0, idx), D.index_select(0, idx))
+
+
+def apply_mamba2(p, x, cfg, state=None, return_state=False, part=None):
+    """SSD block. state: dict(conv_x, conv_B, conv_C, h=[B,H,hd,N]).
+    part: a rank's block of the channels (``p``'s inner leaves and
+    state's conv_x / h hold its channels, h as [B, heads, width, N] of
+    ``part.heads``; see the module's docstring)."""
     B, S, D = x.shape
-    di, N, H, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    N = cfg.ssm_state
     dt_ = x.dtype
-    z = x @ p["wz"].to(dt_)
-    xs = x @ p["wx"].to(dt_)
+    x_in = x if part is None else part.enter(x)
+    z = x_in @ p["wz"].to(dt_)
+    xs = x_in @ p["wx"].to(dt_)
     Bp = x @ p["wB"].to(dt_)
     Cp = x @ p["wC"].to(dt_)
     dt_raw = x @ p["wdt"].to(dt_)
@@ -305,14 +345,16 @@ def apply_mamba2(p, x, cfg, state=None, return_state=False):
         xc = F.silu(_causal_conv(xs, p["conv_x"], p["conv_xb"]))
         Bc = F.silu(_causal_conv(Bp, p["conv_B"], p["conv_Bb"]))
         Cc = F.silu(_causal_conv(Cp, p["conv_C"], p["conv_Cb"]))
-        xh = xc.reshape(B, S, H, hd)
         dt = F.softplus(dt_raw.to(_F32) + p["dt_bias"])          # [B,S,H]
+        H, hd, Bc, Cc, dt, A, Dh = _m2_heads(part, cfg, Bc, Cc, dt, A,
+                                             p["D"])
+        xh = xc.reshape(B, S, H, hd)
         loga = dt * A                                            # [B,S,H] (<0)
         h0 = torch.zeros((B, H, hd, N), dtype=_F32, device=x.device)
         h_fin, y = _scan_chunks(_m2_chunk, h0, (xh, Bc, Cc, dt, loga),
                                 nC, Ck)
-        y = y + xh.to(_F32) * p["D"][None, None, :, None]
-        y = y.reshape(B, S, di)
+        y = y + xh.to(_F32) * Dh[None, None, :, None]
+        y = y.reshape(B, S, H * hd)
         new_state = None
         if return_state:
             Kc = cfg.ssm_conv
@@ -320,7 +362,7 @@ def apply_mamba2(p, x, cfg, state=None, return_state=False):
                          "conv_B": _conv_tail(Bp, Kc).to(dt_),
                          "conv_C": _conv_tail(Cp, Kc).to(dt_),
                          "h": h_fin}
-        return _m2_gated_out(p, y, z, cfg, dt_), new_state
+        return _m2_gated_out(p, y, z, cfg, dt_, part), new_state
 
     # ---- decode step ----
     cs_x, xc = _conv_step(state["conv_x"], xs[:, 0], p["conv_x"],
@@ -330,16 +372,17 @@ def apply_mamba2(p, x, cfg, state=None, return_state=False):
     cs_C, Cc = _conv_step(state["conv_C"], Cp[:, 0], p["conv_C"],
                           p["conv_Cb"])
     xc, Bc, Cc = F.silu(xc), F.silu(Bc), F.silu(Cc)
-    xh = xc.reshape(B, H, hd)
     dt = F.softplus(dt_raw[:, 0].to(_F32) + p["dt_bias"])        # [B,H]
+    H, hd, Bc, Cc, dt, A, Dh = _m2_heads(part, cfg, Bc, Cc, dt, A, p["D"])
+    xh = xc.reshape(B, H, hd)
     a = torch.exp(dt * A)                                        # [B,H]
     hb = torch.einsum("bh,bhd,bn->bhdn", dt, xh.to(_F32), Bc.to(_F32))
     h = a[:, :, None, None] * state["h"] + hb
     y = torch.einsum("bn,bhdn->bhd", Cc.to(_F32), h)
-    y = y + xh.to(_F32) * p["D"][None, :, None]
-    y = y.reshape(B, 1, di)
+    y = y + xh.to(_F32) * Dh[None, :, None]
+    y = y.reshape(B, 1, H * hd)
     new_state = {"conv_x": cs_x, "conv_B": cs_B, "conv_C": cs_C, "h": h}
-    return _m2_gated_out(p, y, z[:, :1], cfg, dt_), new_state
+    return _m2_gated_out(p, y, z[:, :1], cfg, dt_, part), new_state
 
 
 def mamba2_state(cfg, batch: int, dtype=_F32, device=None):

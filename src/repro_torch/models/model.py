@@ -47,10 +47,11 @@ Placed params: ``loss_fn``, ``prefill`` and ``serve_step`` take ``sh``, a
 ``parallel.Shards`` over the tree (this rank's blocks and their pspecs).
 Each layer gathers its ``data``-placed (FSDP) leaves inside its
 (checkpointed) function, and at a ``model`` axis > 1 the attention, MLP,
-MoE, embedding and loss run as sums of the ranks' parts
+MoE, Mamba blocks, embedding and loss run as sums of the ranks' parts
 (``models/parallel.py``). Without ``sh`` nothing changes. The decode cache
 is then this rank's block too (``cache_dim``: the per-layer dim of k/v on
-``model``, as ``sharding.cache_pspecs`` places it).
+``model``; ``state_dims``: each Mamba state leaf's, as
+``sharding.cache_pspecs`` places them).
 """
 from __future__ import annotations
 
@@ -178,10 +179,17 @@ def _layer_params(params, n: int):
     return [T.unflatten((path, ls[i]) for path, ls in per) for i in range(n)]
 
 
-def _ssm_layer(lp, x, cfg, state=None, return_state=False, sh=None):
-    """Pre-norm residual Mamba layer: (x + y, the block's new state)."""
+def _ssm_layer(lp, x, cfg, state=None, return_state=False, sh=None,
+               dims=None):
+    """Pre-norm residual Mamba layer: (x + y, the block's new state);
+    placed at ``model`` > 1, the states are the rank's blocks on their
+    per-layer dims ``dims``."""
     lp = _whole(lp, sh)
     h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
+    if _tp(sh):
+        y, st = P.mamba(sh["mamba"], lp["mamba"], h, cfg, state,
+                        return_state, dims)
+        return x + y, st
     apply = M.apply_mamba1 if cfg.ssm_kind == "mamba1" else M.apply_mamba2
     y, st = apply(lp["mamba"], h, cfg, state=state, return_state=return_state)
     return x + y, st
@@ -315,8 +323,6 @@ def forward_logits(params, cfg: ModelConfig, batch):
 def loss_fn(params, cfg: ModelConfig, batch, sh=None):
     """(mean loss, metrics); ``sh``: the params' placement (this rank's
     blocks), whose rows of the batch ``batch`` is."""
-    if sh is not None:
-        P.check_tensor_parallel(cfg, sh.mesh)
     x, positions, labels, mask = _inputs_to_hidden(params, cfg, batch, sh)
     x, aux = _run_stack(params, cfg, x, positions, sh)
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
@@ -392,11 +398,12 @@ def _cached_block(lp, x, cfg, positions, ck, cv, index: int, sh=None,
     return x + _ffn(lp, h, cfg, sh)[0]
 
 
-def _ssm_step(lp, x, cfg, states: dict, i: int, sh=None):
+def _ssm_step(lp, x, cfg, states: dict, i: int, sh=None, dims=None):
     """Layer i's Mamba decode step; its new states are written into the
     stacked state leaves ``states`` in place."""
     x, new = _ssm_layer(lp, x, cfg, state={k: t[i] for k, t in
-                                            states.items()}, sh=sh)
+                                            states.items()}, sh=sh,
+                        dims=dims)
     for k, t in states.items():
         t[i].copy_(new[k])
     return x
@@ -410,11 +417,13 @@ def _cache_len(cache, cache_dim, sh) -> int:
 
 @torch.no_grad()
 def serve_step(params, cfg: ModelConfig, tokens, cache, index: int,
-               sh=None, cache_dim=None):
+               sh=None, cache_dim=None, state_dims=None):
     """One decode step. tokens: [B] int; index: the host int position of
     this token (the cache's current length). Placed (``sh``): this rank's
     rows and blocks of the params and cache (``cache_dim``: the per-layer
-    k/v dim on ``model``, 1 for S, 2 for K, 3 for hd, None whole).
+    k/v dim on ``model``, 1 for S, 2 for K, 3 for hd, None whole;
+    ``state_dims``: {Mamba state leaf: its per-layer dim on ``model`` or
+    None}).
 
     Writes the step's k/v and SSM states into ``cache`` in place; returns
     (logits [B, vocab_padded] fp32, cache). An index at or past the k/v
@@ -423,8 +432,6 @@ def serve_step(params, cfg: ModelConfig, tokens, cache, index: int,
     same at any position. An encoder has no decode step and raises."""
     check_family(cfg)
     _check_decodes(cfg)
-    if sh is not None:
-        P.check_tensor_parallel(cfg, sh.mesh)
     if "k" in cache and not 0 <= int(index) < _cache_len(cache, cache_dim,
                                                          sh):
         # before any layer writes its state into the cache
@@ -438,12 +445,13 @@ def serve_step(params, cfg: ModelConfig, tokens, cache, index: int,
     lsh, ssh = _layer_shards(sh)
     if cfg.family == "ssm":
         for i, lp in enumerate(layers):
-            x = _ssm_step(lp, x, cfg, cache, i, lsh)
+            x = _ssm_step(lp, x, cfg, cache, i, lsh, state_dims)
     elif cfg.family == "hybrid":
         E = cfg.attn_every
         for g in range(_n_groups(cfg)):
             for i in range(g * E, (g + 1) * E):
-                x = _ssm_step(layers[i], x, cfg, cache["mamba"], i, lsh)
+                x = _ssm_step(layers[i], x, cfg, cache["mamba"], i, lsh,
+                              state_dims)
             x = _cached_block(params["shared"], x, cfg, positions,
                               cache["k"][g], cache["v"][g], index, ssh,
                               cache_dim)
@@ -482,22 +490,23 @@ def _stack_states(states: list) -> dict:
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, batch, sh=None, cache_dim=None):
+def prefill(params, cfg: ModelConfig, batch, sh=None, cache_dim=None,
+            state_dims=None):
     """Forward the prompt and build the decode cache.
 
     Returns (logits [B, Vp] for the last position, cache for serve_step at
     max_len = S; an encoder has no decode step and gets no cache). Placed
-    (``sh``): this rank's rows of the batch, and k/v cut to its block on
-    per-layer dim ``cache_dim`` (as ``serve_step``)."""
-    if sh is not None:
-        P.check_tensor_parallel(cfg, sh.mesh)
+    (``sh``): this rank's rows of the batch, k/v cut to its block on
+    per-layer dim ``cache_dim`` and the Mamba states on ``state_dims``
+    (as ``serve_step``)."""
     x, positions, _, _ = _inputs_to_hidden(params, cfg, batch, sh)
     layers = _layer_params(params["layers"], cfg.num_layers)
     lsh, ssh = _layer_shards(sh)
     if cfg.family == "ssm":
         states = []
         for lp in layers:
-            x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh)
+            x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh,
+                               dims=state_dims)
             states.append(st)
         cache = _stack_states(states)
     elif cfg.family == "hybrid":
@@ -505,7 +514,8 @@ def prefill(params, cfg: ModelConfig, batch, sh=None, cache_dim=None):
         states, ks, vs = [], [], []
         for g in range(_n_groups(cfg)):
             for lp in layers[g * E:(g + 1) * E]:
-                x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh)
+                x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh,
+                                   dims=state_dims)
                 states.append(st)
             # the reference's hybrid prefill runs the shared block causal
             # with no QKV bias; the hybrid configs have none

@@ -40,9 +40,25 @@ the collectives itself:
     by the log-sum-exp rule. A cache placed on K or hd is gathered for the
     layer, attended whole, and the rank's block of the slot written back.
 
-The ssm and hybrid families have no tensor-parallel path yet (Mamba-1's
-``x_proj`` and Mamba-2's gated RMSNorm over all of ``d_inner`` each need a
-sum inside the block): ``check_tensor_parallel`` raises for them.
+      - Mamba blocks (``mamba``; the ssm family and the hybrid's layers):
+        each rank runs ``models/mamba.py`` on its block of the d_inner
+        channels (every leaf on "inner" is its own block). Mamba-1: the
+        input enters through ``copy_to``, ``x_proj``'s partial products
+        are summed over ``model`` forward AND backward (dt_raw, B and C
+        then feed only the rank's channels, so their cotangents are
+        parts of one sum), ``out_proj``'s are summed. Mamba-2: B, C and
+        dt come from replicated weights on every rank and enter the
+        rank's channels through ``copy_to`` (so do A and D); the gated
+        RMSNorm's sum of squares is summed over ``model`` both ways and
+        divided by the whole d_inner; ``out_proj`` is summed. A rank's
+        channels may end inside a head (``ssm_heads % model != 0``): its
+        channels are then taken in pieces of gcd(head_dim, block) that
+        each lie in one head, whose dt, A and D come by global head
+        index. Decode and prefill states are the rank's blocks as
+        ``cache_pspecs`` places them: a block that is the rank's
+        channels is used as it is, any other (conv_B / conv_C on N, h on
+        hd or N) is gathered whole over ``model`` for the step, and the
+        rank's block of the new state is cut from the whole.
 """
 from __future__ import annotations
 
@@ -52,20 +68,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as T
+from repro_torch.launch.cost import unrecorded
 from repro_torch.launch.mesh import (all_gather_dim, all_reduce_max_,
                                      copy_to, gather_from, reduce_from)
 from . import layers as L
+from . import mamba as M
 
 _NEG = -1e30
-TP_SSM_ITEM = "ROADMAP A.1b (tensor parallelism over `inner` for Mamba-1/2)"
-
-
-def check_tensor_parallel(cfg, mesh):
-    """Raise for a family with no tensor-parallel path at ``model`` > 1."""
-    if mesh.shape.get("model", 1) > 1 and cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over 'inner' for the "
-            f"{cfg.family} family is not ported yet: {TP_SSM_ITEM}")
 
 
 class Shards:
@@ -189,9 +198,12 @@ def _global(sh, name, w, dim) -> int:
 
 
 def block(t, dim: int, sh: Shards):
-    """This rank's block of a whole tensor along ``dim`` over ``model``."""
+    """This rank's block of a whole tensor along ``dim`` over ``model``: a
+    copy (a contiguous slice would be a view that keeps the whole
+    alive)."""
     n = t.shape[dim] // sh.m
-    return t.narrow(dim, sh.r * n, n).contiguous()
+    return t.narrow(dim, sh.r * n, n).clone(
+        memory_format=torch.contiguous_format)
 
 
 # ---------------------------------------------------------------------------
@@ -461,3 +473,119 @@ def logits_last(sh: Shards, emb_params, hidden_last, vocab_size=None):
                                         device=W.device)
                            >= vocab_size) * _NEG
     return all_gather_dim(sh.mesh, "model", logits, 1)
+
+
+# ---------------------------------------------------------------------------
+# Mamba blocks: tensor parallelism over the d_inner channels
+# ---------------------------------------------------------------------------
+
+class _Channels:
+    """``models/mamba.py``'s ``part``: rank r's block [lo, hi) of the
+    d_inner channels (each leaf on "inner" placed on ``model``)."""
+
+    def __init__(self, sh: Shards, cfg):
+        self.mesh = sh.mesh
+        self.lo, self.hi = ranges(cfg.d_inner, sh.m)[sh.r]
+        if cfg.ssm_kind == "mamba2":
+            self.width = math.gcd(cfg.ssm_head_dim, self.hi - self.lo,
+                                  self.lo)
+
+    def enter(self, x):
+        return copy_to(self.mesh, "model", x)
+
+    shared = enter
+
+    def sum(self, t):
+        """Partial products summed over ``model``, whose cotangent is in
+        turn a part of one sum: all-reduced both ways."""
+        return copy_to(self.mesh, "model", reduce_from(self.mesh, "model", t))
+
+    def out(self, t):
+        return reduce_from(self.mesh, "model", t)
+
+    def heads(self, cfg, device):
+        """The global head of each ``width``-channel piece of the block."""
+        return torch.arange(self.lo, self.hi, self.width,
+                            device=device) // cfg.ssm_head_dim
+
+
+def _channel_view(name: str, t, cfg):
+    """A per-layer state leaf as (view with the channels on one dim, that
+    dim), or (t, None) for a state of replicated values (conv_B,
+    conv_C)."""
+    if name in ("conv", "conv_x"):                 # [B, K-1, d_inner]
+        return t, 2
+    if name != "h":
+        return t, None
+    if cfg.ssm_kind == "mamba1":                   # [B, d_inner, N]
+        return t, 1
+    return t.reshape(t.shape[0], -1, t.shape[-1]), 1   # [B, H*hd, N]
+
+
+def _is_channel_block(name: str, dim, cfg) -> bool:
+    """True when a leaf's block on ``model`` (per-layer dim ``dim``) is
+    the rank's channels: the channel dim (d_inner, or Mamba-2's heads)."""
+    if name in ("conv", "conv_x"):
+        return dim == 2
+    return name == "h" and dim == 1
+
+
+def _state_part(sh, name, t, dim, cfg, part):
+    """The state this rank's block step reads: its channels (a Mamba-2 h
+    as [B, heads, width, N]), or the whole leaf (conv_B / conv_C, or
+    every leaf when the channels are not placed: ``part`` None). ``t``:
+    the rank's block, placed on per-layer dim ``dim`` (or None)."""
+    if part is not None and _is_channel_block(name, dim, cfg):
+        view = t
+    else:
+        whole = t if dim is None else all_gather_dim(
+            sh.mesh, "model", t.contiguous(), dim)
+        view, cd = _channel_view(name, whole, cfg)
+        if part is None or cd is None:
+            return whole
+        view = view.narrow(cd, part.lo, part.hi - part.lo)
+    if name == "h" and cfg.ssm_kind == "mamba2":
+        return view.reshape(view.shape[0], -1, part.width, view.shape[-1])
+    return view
+
+
+def _state_block(sh, name, new, dim, cfg, part, whole_shape):
+    """The rank's block on per-layer dim ``dim`` of a new state from its
+    step's part ``new`` (as ``_state_part`` gave it): the channels
+    gathered whole over ``model`` unless they are the block."""
+    if part is not None and _is_channel_block(name, dim, cfg):
+        return new
+    cd = _channel_view(name, new, cfg)[1]
+    if part is not None and cd is not None:
+        if name == "h" and cfg.ssm_kind == "mamba2":
+            new = new.reshape(new.shape[0], -1, new.shape[-1])
+        new = all_gather_dim(sh.mesh, "model", new.contiguous(), cd)
+    whole = new.reshape(whole_shape)
+    return whole if dim is None else block(whole, dim, sh)
+
+
+def mamba(sh: Shards, p, x, cfg, state=None, return_state=False,
+          dims=None):
+    """The Mamba block (``mamba.apply_mamba1`` / ``apply_mamba2``) as a sum
+    of the ranks' channel blocks. ``state``: this rank's blocks of the
+    layer's decode state, placed on per-layer dims ``dims`` ({leaf: dim
+    or None}, as ``cache_pspecs`` places them); the new state (decode, or
+    prefill with ``return_state``) comes back the same way. When d_inner
+    does not divide over ``model`` its leaves stay whole and every rank
+    runs the one-process block."""
+    m1 = cfg.ssm_kind == "mamba1"
+    apply = M.apply_mamba1 if m1 else M.apply_mamba2
+    dims = dims or {}
+    part = _Channels(sh, cfg) if sh.model_dim("wx") is not None else None
+    if state is not None:
+        state = {k: _state_part(sh, k, t, dims.get(k), cfg, part)
+                 for k, t in state.items()}
+    y, new = apply(p, x, cfg, state, return_state, part)
+    if new is not None:
+        with unrecorded():     # the states' whole per-layer shapes
+            whole = {k: t.shape for k, t in (
+                M.mamba1_state if m1 else M.mamba2_state)(
+                    cfg, x.shape[0], device="meta").items()}
+        new = {k: _state_block(sh, k, t, dims.get(k), cfg, part, whole[k])
+               for k, t in new.items()}
+    return y, new

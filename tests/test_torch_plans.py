@@ -79,13 +79,16 @@ class _RecordingLib:
 def recording(monkeypatch):
     """The wrappers' CUDA path driven with meta tensors (shapes, no data)
     into a recording library: what each launch is handed, without a
-    card."""
+    card. The wrappers' meta branch (a dry run's) is switched off, so the
+    meta tensors take the CUDA route."""
     lib = _RecordingLib()
     lib.tickets = []
     for mod in (kq, ksc, kbs, krc):
         monkeypatch.setattr(mod, "kernel_lib", lambda: lib)
         monkeypatch.setattr(mod, "check_cuda", lambda *a, **k: a[1])
         monkeypatch.setattr(mod, "stream_ptr", lambda dev: 0)
+    for mod in (kq, kbs, krc):
+        monkeypatch.setattr(mod, "on_meta", lambda x: False)
     for mod in (kq, ksc, kbs):
         monkeypatch.setattr(mod, "tile_tickets", lambda dev, n: (
             lib.tickets.append(n), _meta(n, torch.int32))[1])

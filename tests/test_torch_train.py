@@ -426,8 +426,7 @@ def test_sigterm_checkpoints_and_exits_cleanly(tmp_path):
 def test_train_main_rejects_unported_families():
     """The encoder and vlm families train through ``train.main`` (their
     smoke configs, 2 steps with the exchange); internvl2-76b's full config
-    places (FSDP) rather than raising, and only the state-space families
-    at a ``model`` axis > 1 still raise (their tensor parallelism)."""
+    places (FSDP) rather than raising."""
     for arch in ("hubert-xlarge", "internvl2-76b"):
         losses = []
         state = TTr.main(["--device", "cpu", "--smoke", "--arch", arch,
@@ -441,14 +440,6 @@ def test_train_main_rejects_unported_families():
     _, specs = TSt.make_train_step(TR.get_config("internvl2-76b"),
                                    TA.OptConfig(), mesh)
     assert specs["params"]["layers"]["mlp"]["wi"] == (None, "data", "model")
-
-    class _Model2:
-        shape = {"data": 1, "model": 2}
-        axis_names = ("data", "model")
-        coords = {"data": 0, "model": 0}
-    with pytest.raises(NotImplementedError, match="inner"):
-        TSt.make_train_step(TR.get_smoke_config("zamba2-2.7b"),
-                            TA.OptConfig(), _Model2())
 
 
 def test_train_main_starts_its_own_process_group(tmp_path):
