@@ -158,7 +158,7 @@ Phases (any failure exits non-zero; nothing is caught):
    (vlm: d_model 8192, GQA 64/8 heads of 128, d_ff 28,672, vocab 128,256
    untied, 256 stub patch embeddings before the text; the depth cut from
    80 to 8 layers, 8,946,589,696 parameters, 35.8 GB in fp32, since 80
-   take 282 GB and its config is FSDP): (a) hubert ``train.main`` for 4
+   take 282 GB and its config is FSDP): (a) hubert ``train.main`` for 3
    steps at full depth, batch 8 x 1024 frames, mesh 1x1x1, the sampled
    exchange (k = 256), importance sampling and the telemetry fold, a
    checkpoint every 2 steps; finite losses, each step's launches the
@@ -204,7 +204,11 @@ Phases (any failure exits non-zero; nothing is caught):
    of the one-process run's, every K1 (seeds only) and K2 launch held
    against its plain version at the call, one block's exchange against
    the formula over the gathered slabs, K1 and K2 timed at the largest
-   block (emb.tok's [75,968, 1,536]); (c) gemma-2b and phi3-mini-3.8b at
+   block (emb.tok's [75,968, 1,536]), then one step at microbatch 2 on 6
+   rows without the exchange (parts of 3 rows over the 2 (pod, data)
+   ranks: shares of 2 and 1, as the reference cuts the global batch),
+   its loss and grad norm rtol 1e-5 of the one-process microbatched
+   step's; (c) gemma-2b and phi3-mini-3.8b at
    full width and depth, mesh (1, 1, 2) in 2 processes: prefill at batch
    4 x 128 and 4 greedy decode steps (gemma's cache placed on hd, the
    gathered case; phi3's on S, sequence-parallel), logits rtol 1e-5 and
@@ -223,13 +227,27 @@ Phases (any failure exits non-zero; nothing is caught):
    and K2 timed at that block.
 12. the dry run against the card (``repro_torch.launch.dryrun``): (a) the
    meta twin of 7a's step (qwen2-1.5b, batch 8 x 128, the exchange and
-   the telemetry fold, one process): its argument bytes equal to the
-   state and batch held on the card, its arguments plus temporaries
-   printed beside ``torch.cuda.max_memory_allocated`` over 4 steps of
-   the same step on the card, and its matmul FLOPs over the step's p50
-   as achieved TFLOP/s; (b) the production cell zamba2-2.7b x decode_32k
-   on (2, 16, 16) through the CLI in its own process: status ok, memory
-   and cost filled.
+   the telemetry fold, one process), walked with trip counts (the layer
+   loop's first layer walked, the rest booked) and with every layer
+   walked: the same counts, the ops dispatched and booked printed; its
+   argument bytes equal to the state and batch held on the card, its
+   arguments plus temporaries within 0.97-1.01 of
+   ``torch.cuda.max_memory_allocated`` over 4 steps of the same step on
+   the card, and its matmul FLOPs over the step's p50 as achieved
+   TFLOP/s; (b) the production cell zamba2-2.7b x decode_32k on (2, 16,
+   16) through the CLI in its own process: status ok, memory and cost
+   filled.
+13. the twins of ``examples/*.py`` (``examples/torch/``) on the card at
+   their short settings: quickstart at 100,000 keys, cluster_centers at
+   4,000 points, serve_batched (zamba2-2.7b smoke) with 4 generated
+   tokens and train_with_sampled_telemetry (granite-moe smoke) for 3
+   steps, each through its ``main`` in this process; then
+   gradient_compression_demo's ``worker`` in 8 gloo processes
+   (``--demo-worker``; its 2 x 2 x 2 mesh), 2 dense and 2 sampled steps:
+   the first losses equal, fewer bytes across pods sampled than dense,
+   K1 and K2 launched on every rank. Every kernel launch of the phase is
+   recorded at the call and held against its plain version on its
+   inputs.
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
@@ -251,12 +269,14 @@ summed over its 4 ranks; K1's and K2's ``placement_block_*`` keys their
 times at 11b's largest block; every row's ``placement_ssm_launches`` are
 11d's training summed over its 4 ranks, and K1's and K2's
 ``placement_ssm_block_*`` keys their times at 11d's largest Mamba
-block.
+block; every row's ``examples_launches`` are phase 13's, summed over the
+twins and the demo's 8 ranks.
 """
 from __future__ import annotations
 
 import contextlib
 import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -313,10 +333,10 @@ HYBRID_ARCH = "zamba2-2.7b"
 HYBRID_STEP_LAUNCHES = (20, 21, 1, 0, 0, 0)  # 19 sampled leaves + 1 fold
 LONG_500K_LAST = 524_287            # long_500k's last position
 ENCODER_ARCH = "hubert-xlarge"      # phase 10: the encoder and vlm families
-ENCODER_STEPS = 4
+ENCODER_STEPS = 3
 ENCODER_S = 1024                    # frames: ~20 s of audio at 50 Hz
 ENCODER_LONG_S = 32_768             # prefill_32k's length, batch cut to 1
-ENCODER_LONG_BUDGET_S = 30.0        # ... S cut to fit this wall time
+ENCODER_LONG_BUDGET_S = 15.0        # ... S cut to fit this wall time
 VLM_ARCH = "internvl2-76b"
 VLM_LAYERS = 8                      # depth cut from 80: 35.8 GB in fp32
 VLM_TRAFFIC = ["--batch", "8", "--prompt-len", "768", "--gen", "64"]
@@ -2080,11 +2100,12 @@ class _Recorded:
 
 
 @contextlib.contextmanager
-def recorded_launches(torch):
-    """Every call of a ``PATH_WRAPPERS`` wrapper inside the block, as
-    (counter, inputs, outputs), copies taken at the call."""
+def recorded_launches(torch, wrappers=PATH_WRAPPERS):
+    """Every call of a ``wrappers`` wrapper (default ``PATH_WRAPPERS``)
+    inside the block, as (counter, inputs, outputs), copies taken at the
+    call."""
     calls, saved = [], []
-    for mod_name, attr, counter in PATH_WRAPPERS:
+    for mod_name, attr, counter in wrappers:
         mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
         fn = getattr(mod, attr)
         saved.append((mod, attr, fn))
@@ -2110,7 +2131,12 @@ def check_path_launches(torch, calls, what: str):
     errs = {}
     for i, (name, (a, kw), got) in enumerate(calls):
         tag = f"{what}: {name} launch {i}"
-        if name == "seeds":
+        if name == "seeds only":
+            want = fused_seeds_fvals_plain(*a, **kw, want_fvals=False)[0]
+            _check(ulps(got, want) <= 2,
+                   f"{tag}: seeds differ from the plain version")
+            err = max_abs(got, want)
+        elif name == "seeds":
             (sk, fk), (sp, fp) = got, fused_seeds_fvals_plain(*a, **kw)
             exact = [j for j, (kind, _) in enumerate(a[3]) if kind != 4]
             _check(ulps(sk, sp) <= 2 and ulps(fk, fp) <= 2
@@ -2769,7 +2795,7 @@ def phase_encoder_vlm(torch, K, dev, card: str):
               f"({card}), batch 8 x {ENCODER_S} frames, sampled exchange k "
               f"= 256 at one pod: losses {[round(x, 4) for x in losses]}; "
               f"step wall s {[round(x, 4) for x in secs]}, p50 "
-              f"{float(np.median(secs)):.4f} (steps 2-4 "
+              f"{float(np.median(secs)):.4f} (steps 2-{ENCODER_STEPS} "
               f"{float(np.median(secs[1:])):.4f}); run {run_s:.1f} s with "
               f"2 checkpoints; peak memory {peak:.2f} GiB; launches: the "
               f"importance build {rec['before']}, each step {want} ({nleaf} "
@@ -3023,6 +3049,9 @@ GRAD_AGREE = 1e-3
 HELD_MIN = 0.9
 PLACE_TIMEOUT_S = 600
 PLACE_MIN_SIZE = 65_536              # 11b's exchange: sampled blocks
+# 11b's microbatched step: 6 rows in 2 parts of 3, over its 2 (pod, data)
+# ranks (shares of 2 and 1 rows: the reference's global-batch parts)
+PLACE_MB_ROWS = 6
 WORKER_DEVICE = "cuda"
 AX3 = ("pod", "data", "model")
 # 11b's largest per-shard block: the tied emb.tok split on vocab over
@@ -3163,6 +3192,32 @@ def _place_train(torch, cfg, mesh, dev, compress=None, steps=PLACE_STEPS):
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     out["grads"] = grads_seen
     out["routes"] = routes
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _microbatch_step(torch, cfg, mesh, dev):
+    """One train step from seed 0 at microbatch 2 on the first
+    PLACE_MB_ROWS rows of 11b's first batch, no exchange (fp32
+    activations): {loss, grad_norm, sec}."""
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import steps as St
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1, total_steps=1)
+    step_fn, specs = St.make_train_step(cfg, opt, mesh, microbatch=2)
+    state = Sh.place({"params": params, "opt": adamw.init_opt_state(params)},
+                     specs, mesh)
+    del params
+    batch = {k: v[:PLACE_MB_ROWS] for k, v in
+             _place_batches(torch, cfg, dev, steps=1)[0][0].items()}
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch)
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "sec": round(time.perf_counter() - t0, 3)}
     del state
     torch.cuda.empty_cache()
     return out
@@ -3469,6 +3524,7 @@ def _place_exchange_worker(torch, K, dev, arch=PLACE_TP_ARCH,
            "bytes": _state_bytes(TT, state), "coords": mesh.coords}
     if not formula:
         return out
+    out["microbatch"] = _microbatch_step(torch, cfg, mesh, dev)
     # one block's exchange against the formula over the gathered slabs
     Mod.ACT_DTYPE = torch.float32
     sh = St.P.Shards(mesh, specs["params"])
@@ -3589,6 +3645,15 @@ def phase_placement(torch, K, dev, card: str):
         biggest = max(max(r["blocks"]) for r in ranks)
         _check(biggest == PLACE_BLOCK[0] * PLACE_BLOCK[1],
                f"11b: largest block {biggest} rows")
+        mb_twin = _microbatch_step(torch, cfg, one, dev)
+        mb = ranks[0]["microbatch"]
+        for r in ranks:
+            _check(r["microbatch"]["loss"] == mb["loss"],
+                   "11b: microbatched losses differ between ranks")
+        for key in ("loss", "grad_norm"):
+            _check(abs(mb[key] - mb_twin[key]) <= 1e-5 * abs(mb_twin[key]),
+                   f"11b: microbatched {key} {mb[key]} vs one process "
+                   f"{mb_twin[key]}")
         gen = torch.Generator(device=dev).manual_seed(21)
         g = torch.randn(biggest, generator=gen, device=dev)
         stats = big_leaf_kernels(torch, dev, g, 17, f"11b on {card}: "
@@ -3605,8 +3670,13 @@ def phase_placement(torch, K, dev, card: str):
               f"{max(r['errs']['blockselect'] for r in ranks):.3g}) on "
               f"blocks of {ranks[0]['blocks']} rows; exchange of "
               f"{ranks[0]['exchange_leaf']} block = formula within "
-              f"{max(r['exchange_max_rel'] for r in ranks):.3g}; phase "
-              f"wall {wall:.1f} s", flush=True)
+              f"{max(r['exchange_max_rel'] for r in ranks):.3g}; a "
+              f"microbatch-2 step on {PLACE_MB_ROWS} rows (parts of "
+              f"{PLACE_MB_ROWS // 2} over 2 (pod, data) ranks: shares 2 and "
+              f"1) loss {mb['loss']:.7g} / grad norm {mb['grad_norm']:.7g} "
+              f"vs one process {mb_twin['loss']:.7g} / "
+              f"{mb_twin['grad_norm']:.7g} (rtol 1e-5), step s {mb['sec']} "
+              f"vs {mb_twin['sec']}; phase wall {wall:.1f} s", flush=True)
         del twin
         torch.cuda.empty_cache()
 
@@ -3786,9 +3856,16 @@ def phase_dryrun(torch, dev, card: str):
     cfg = get_config(TRAIN_ARCH)
     shape = ShapeConfig("7a", 128, 8, "train")
     comp = dict(k=256, min_size=65536)
-    mem, hlo, walk = measure_step(cfg, shape, Mesh((1, 1, 1), AX3,
-                                                   device="meta"),
-                                  compress=comp, telemetry=train.TEL_SPEC)
+    # the trip-counted walk (the dry run's), and every layer walked
+    (mem, hlo, walk), (mem_f, hlo_f, walk_f) = (measure_step(
+        cfg, shape, Mesh((1, 1, 1), AX3, device="meta"), compress=comp,
+        telemetry=train.TEL_SPEC, trip_counts=tc) for tc in (True, False))
+    _check(mem["argument_size_in_bytes"] == mem_f["argument_size_in_bytes"]
+           and all(hlo[k] == hlo_f[k] for k in (
+               "flops", "matmul_flops", "hbm_bytes", "transcendental",
+               "coll_bytes", "coll_ops", "kernels")),
+           f"12a: the trip-counted walk's counts differ from the full "
+           f"walk's: {hlo} vs {hlo_f}")
     step_fn, _ = St.make_train_step(cfg, adamw.OptConfig(),
                                     Mesh((1, 1, 1), AX3, device=dev),
                                     compress=comp, telemetry=train.TEL_SPEC)
@@ -3821,11 +3898,18 @@ def phase_dryrun(torch, dev, card: str):
     torch.cuda.empty_cache()
     p50 = float(np.median(secs[1:]))
     predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    full = mem_f["argument_size_in_bytes"] + mem_f["temp_size_in_bytes"]
+    _check(0.97 <= predicted / peak <= 1.01,
+           f"12a: predicted {predicted} bytes vs max_memory_allocated {peak}")
     print(f"12a dry-run twin of 7a's step ({TRAIN_ARCH}, batch 8 x 128, "
-          f"exchange k = 256, telemetry fold; a {hlo['n_ops']:,}-op walk "
-          f"on meta in {walk:.1f} s): argument bytes {nbytes:,} on the "
+          f"exchange k = 256, telemetry fold; walked on meta with trip "
+          f"counts in {walk:.1f} s: {hlo['dispatched_ops']:,} ops "
+          f"dispatched, {hlo['n_ops']:,} booked; every layer walked in "
+          f"{walk_f:.1f} s: {hlo_f['n_ops']:,} ops, the same counts): "
+          f"argument bytes {nbytes:,} on the "
           f"card = {mem['argument_size_in_bytes']:,} counted; arguments + "
-          f"temporaries {predicted / 2 ** 30:.2f} GiB predicted vs "
+          f"temporaries {predicted / 2 ** 30:.2f} GiB predicted "
+          f"({full / 2 ** 30:.2f} walking every layer) vs "
           f"max_memory_allocated {peak / 2 ** 30:.2f} GiB over "
           f"{DRY_REPS} steps (ratio {predicted / peak:.4f}); matmul FLOPs "
           f"{hlo['matmul_flops']:.6g} (all FLOPs {hlo['flops']:.6g}, HBM "
@@ -3858,6 +3942,139 @@ def phase_dryrun(torch, dev, card: str):
           f"collectives {hlo_c['coll_ops']} ({hlo_c['coll_bytes']:.6g} "
           f"bytes, {hlo_c['coll_bytes_xpod']:.6g} across pods); phase 12 "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the example twins (examples/torch/) on the card
+# ---------------------------------------------------------------------------
+
+# the twins that run in this process, each at its short setting
+EXAMPLE_RUNS = (("quickstart", ["--keys", "100000"]),
+                ("cluster_centers", ["--points", "4000"]),
+                ("serve_batched", ["--gen", "4"]),
+                ("train_with_sampled_telemetry", ["--steps", "3"]))
+DEMO_STEPS = 2          # gradient_compression_demo: 2 steps of each run
+DEMO_WORLD = 8          # ... on its 2 x 2 x 2 mesh of gloo processes
+# the exchange's K1 runs seeds only (counted with K1)
+EXAMPLE_WRAPPERS = PATH_WRAPPERS + (("seeds", "fused_seeds", "seeds only"),)
+
+
+def _example(name: str):
+    """The module of ``examples/torch/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _held_launches(torch, K, calls, what: str):
+    """The launches counted since the last reset, every one of them among
+    ``calls`` and held against its plain version: ({kernel: launches},
+    {counter: max abs err})."""
+    counts = K.launch_counts()
+    recorded = {k: 0 for k in K.COUNTED}
+    for name, _, _ in calls:
+        recorded["seeds" if name == "seeds only" else name] += 1
+    _check(recorded == counts,
+           f"{what}: recorded launches {recorded}, counted {counts}")
+    return counts, check_path_launches(torch, calls, what)
+
+
+def _demo_worker(rank: int, world: int, port: str, out: str) -> int:
+    """One rank of 13's gradient_compression_demo: the twin's own
+    ``worker`` on the card, its kernel launches recorded and held against
+    their plain versions here; writes ``out``/rank<r>.json."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import repro_torch.kernels as K
+    demo = _example("gradient_compression_demo")
+    with recorded_launches(torch, EXAMPLE_WRAPPERS) as calls:
+        demo.worker(rank, world, port, out, DEMO_STEPS, device=WORKER_DEVICE)
+    counts, errs = _held_launches(torch, K, calls, f"13 demo rank {rank}")
+    with open(Path(out) / f"rank{rank}.json", "w") as f:
+        json.dump({"counts": counts, "errs": errs}, f)
+    return 0
+
+
+def phase_examples(torch, K, card: str):
+    """13: the five twins of ``examples/*.py`` on the card at their short
+    settings (``EXAMPLE_RUNS`` through their ``main``;
+    gradient_compression_demo's ``worker`` in DEMO_WORLD gloo processes,
+    as the script launches it). Every kernel launch is recorded at the
+    call and held against its plain version on its inputs (phase 1's
+    tolerances). Returns the launches summed over the twins."""
+    import socket
+    totals = {k: 0 for k in K.COUNTED}
+    for name, argv in EXAMPLE_RUNS:
+        mod = _example(name)
+        torch.cuda.empty_cache()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorded_launches(torch, EXAMPLE_WRAPPERS) as calls:
+            mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, errs = _held_launches(torch, K, calls, f"13 {name}")
+        del calls
+        for k, v in counts.items():
+            totals[k] += v
+        print(f"13 {name} {' '.join(argv)} on {card}: launches {counts}, "
+              f"each held against its plain version (max abs err "
+              f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }); wall "
+              f"{wall:.1f} s", flush=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="chip_smoke_13_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [*PLACE_WORKER_CMD, "--demo-worker", str(r), str(DEMO_WORLD), port,
+         out], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DEMO_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=PLACE_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        _check(p.returncode == 0, f"13 demo rank {r} failed:\n{log[-4000:]}")
+    res = json.loads((Path(out) / "result.json").read_text())
+    ranks = [json.loads((Path(out) / f"rank{r}.json").read_text())
+             for r in range(DEMO_WORLD)]
+    dense, sampled = res["dense"], res["sampled"]
+    _check(len(dense) == len(sampled) == DEMO_STEPS
+           and np.all(np.isfinite(dense + sampled))
+           and dense[0] == sampled[0],
+           f"13 demo: losses {dense} / {sampled}")
+    _check(0 < res["sampled_xpod_bytes"] < res["dense_xpod_bytes"],
+           f"13 demo: cross-pod bytes {res['sampled_xpod_bytes']} sampled "
+           f"vs {res['dense_xpod_bytes']} dense")
+    for r in ranks:
+        _check(r["counts"]["seeds"] > 0 and r["counts"]["blockselect"] > 0,
+               f"13 demo: a rank's exchange launched {r['counts']}")
+        for k, v in r["counts"].items():
+            totals[k] += v
+    print(f"13 gradient_compression_demo --steps {DEMO_STEPS}, "
+          f"{DEMO_WORLD} gloo processes on {card}: dense losses {dense}, "
+          f"sampled {sampled}; cross-pod bytes of a step on rank 0 "
+          f"{res['dense_xpod_bytes']:,} dense vs "
+          f"{res['sampled_xpod_bytes']:,} sampled; K1/K2 launches "
+          f"{sum(r['counts']['seeds'] for r in ranks)}/"
+          f"{sum(r['counts']['blockselect'] for r in ranks)} over the ranks, "
+          f"each held against its plain version (max abs "
+          f"{max(r['errs'].get('seeds only', 0.0) for r in ranks):.3g} / "
+          f"{max(r['errs'].get('blockselect', 0.0) for r in ranks):.3g}); "
+          f"wall {wall:.1f} s", flush=True)
+    return totals
 
 
 def member_triples(torch, sk):
@@ -3932,6 +4149,8 @@ def main() -> int:
     done("11")
     phase_dryrun(torch, dev, card)
     done("12")
+    example_counts = phase_examples(torch, K, card)
+    done("13")
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),
@@ -3960,7 +4179,8 @@ def main() -> int:
                      "vlm_serve_launches": vlm_counts[name],
                      **place_stats.get(name, {}),
                      "placement_launches": place_counts[name],
-                     "placement_ssm_launches": place_ssm_counts[name]})
+                     "placement_ssm_launches": place_ssm_counts[name],
+                     "examples_launches": example_counts[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3971,6 +4191,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-worker"]:
         sys.exit(_train_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--demo-worker"]:
+        sys.exit(_demo_worker(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], sys.argv[5]))
     if sys.argv[1:2] == ["--place-worker"]:
         sys.exit(_place_worker(sys.argv[2], int(sys.argv[3]),
                                int(sys.argv[4]), sys.argv[5], sys.argv[6]))

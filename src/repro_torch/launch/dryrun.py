@@ -71,12 +71,13 @@ def _with_overrides(cfg, overrides: str):
 
 
 def measure_step(cfg, shape, mesh, microbatch: int = 1, compress=False,
-                 telemetry=None):
+                 telemetry=None, trip_counts: bool = True):
     """One call of (cfg x shape)'s step as rank 0 of ``mesh`` on meta
     tensors: (memory, hlo_cost, wall seconds). Train cells take AdamW's
     defaults, ``microbatch`` parts and, with ``compress``, the sampled
     exchange (True: k = 512, the reference's; a dict: its kwargs);
-    ``telemetry``: a MultiSketchSpec folded by the train step."""
+    ``telemetry``: a MultiSketchSpec folded by the train step;
+    ``trip_counts=False`` walks every iteration of every loop (tests)."""
     from repro_torch.launch import cost
     from repro_torch.launch import sharding as Sh
     from repro_torch.launch import steps as St
@@ -107,7 +108,7 @@ def measure_step(cfg, shape, mesh, microbatch: int = 1, compress=False,
         call = lambda: step(params, batch["tokens"], cache,
                             shape.seq_len - 1)
     held = _tensors(args)
-    with cost.recording(held) as rec:
+    with cost.recording(held, trip_counts) as rec:
         out = call()
     wall = time.perf_counter() - t0
     arg_bytes = _nbytes(args[0]) + rows + sum(_nbytes(a) for a in args[2:])

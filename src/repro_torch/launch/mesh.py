@@ -234,8 +234,11 @@ def all_gather_dim(mesh: Mesh, axis: str, x: torch.Tensor,
 
 
 def _block(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    """Block i of n along ``dim``, a copy (a view would keep all of x
+    alive: an FSDP block's gradient, the whole layer's)."""
     size = x.shape[dim] // n
-    return x.narrow(dim, i * size, size).contiguous()
+    return x.narrow(dim, i * size, size).clone(
+        memory_format=torch.contiguous_format)
 
 
 def reduce_scatter_sum(mesh: Mesh, axis: str, x: torch.Tensor,

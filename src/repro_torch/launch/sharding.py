@@ -115,19 +115,38 @@ def cache_pspecs(cache_tree, cfg, mesh):
     return T.tree_map(one, cache_tree)
 
 
-def batch_slice(mesh, n: int) -> slice:
-    """The rows of an n-row global batch this rank holds: the batch is
-    split over (pod, data) in row-major order, as ``batch_pspec`` says."""
-    axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+def _batch_split(mesh, axes) -> tuple:
+    """(number of ranks, this rank's index) over the mesh's ``axes`` among
+    (pod, data), row-major."""
     parts, index = 1, 0
     for a in axes:
-        parts *= mesh.shape[a]
-        index = index * mesh.shape[a] + mesh.coords[a]
+        if a in mesh.axis_names:
+            parts *= mesh.shape[a]
+            index = index * mesh.shape[a] + mesh.coords[a]
+    return parts, index
+
+
+def batch_slice(mesh, n: int, axes=("pod", "data")) -> slice:
+    """The rows of an n-row global batch this rank holds: the batch is
+    split over ``axes`` (default (pod, data)) in row-major order, as
+    ``batch_pspec`` says. Raises when n does not split evenly."""
+    parts, index = _batch_split(mesh, axes)
     if n % parts:
         raise ValueError(f"global batch {n} does not split over {parts} "
-                         f"(pod, data) ranks")
+                         f"({', '.join(axes)}) ranks")
     b = n // parts
     return slice(index * b, (index + 1) * b)
+
+
+def batch_share(mesh, n: int, axes=("pod", "data")) -> tuple:
+    """This rank's share of an n-row batch axis constrained over ``axes``
+    (row-major), as GSPMD lays out an axis that need not divide: shares
+    of ceil(n / ranks) rows, the last ranks' short or empty. Returns (the
+    rows the rank holds, the share's full size)."""
+    parts, index = _batch_split(mesh, axes)
+    size = -(-n // parts)
+    lo = min(index * size, n)
+    return slice(lo, min(lo + size, n)), size
 
 
 # ---------------------------------------------------------------------------

@@ -4,16 +4,16 @@ inputs and state.
 Port of ``repro/launch/steps.py``. The state is placed: every rank holds
 the blocks of the params and moments that ``state_specs`` gives it
 (``sharding.place``; FSDP leaves over ``data``, tensor-parallel leaves
-over ``model``). Each rank runs the train step on its rows of the global
-batch (``sharding.batch_slice``): gradients are taken on them (an FSDP
-leaf's gradient comes back as the rank's block of the mean over ``data``,
-from the gather's backward; the others are averaged over the ``data``
-group), then reduced over the ``pod`` group densely or, with
-``compress``, through the sampled exchange (``distopt.compression``, one
-sample per block); AdamW runs on the blocks, and with ``telemetry`` the
-step's loss is folded into a device-resident MultiSketch. No train state
-is donated: every train step returns fresh tensors and leaves its input
-valid. The prefill and decode steps take placed params and the global
+over ``model``). Each rank runs the train step on its share of each
+microbatch of the global batch (``sharding.batch_share``, as GSPMD shares
+a part's rows): gradients are taken on them (an FSDP leaf's gradient
+comes back as the rank's block of the mean over ``data``, from the
+gather's backward; the others are averaged over the ``data`` group), then
+reduced over the ``pod`` group densely or, with ``compress``, through the
+sampled exchange (``distopt.compression``, one sample per block); AdamW
+runs on the blocks, and with ``telemetry`` the step's loss is folded into
+a device-resident MultiSketch. No train state is donated: every train
+step returns fresh tensors and leaves its input valid. The prefill and decode steps take placed params and the global
 batch, run on the rank's rows and give back the whole logits and the
 cache placed by ``cache_pspecs``; the decode step writes into the cache
 it is given (the reference's serve step donates its cache).
@@ -28,11 +28,11 @@ from repro_torch import tree as T
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.core.multi_sketch import (MultiSketchSpec,
                                            multisketch_absorb_inline)
+from repro_torch.launch import cost
 from repro_torch.launch import sharding as Sh
 from repro_torch.launch.cost import unrecorded
 from repro_torch.launch.mesh import all_gather_dim, all_reduce_mean_
 from repro_torch.launch.summary import multisketch_shape
-from repro_torch.models import layers as L
 from repro_torch.models import model as Mod
 from repro_torch.models import parallel as P
 from repro_torch.models.config import ModelConfig
@@ -150,8 +150,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
 
     grad_transform: optional fn(grads, params, step) -> grads applied
     between backward and optimizer.
-    microbatch: split this rank's rows into ``microbatch`` sequential
-    parts; their losses and gradients are summed in order, then divided.
+    microbatch: cut the batch into ``microbatch`` parts of consecutive
+    rows, each shared over the batch ranks as the reference's GSPMD
+    shares it; their losses and gradients are summed in order, then
+    divided (``compute_grads``). The batch must split into the parts.
     compress: dict of ``compressed_grads_fn`` kwargs; with a "pod" axis the
     cross-pod reduction is the sampled exchange.
     telemetry: a MultiSketchSpec; the state then carries a MultiSketch
@@ -166,8 +168,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
     # under the sampled exchange a pod's loss is over the pod's batch
     sh = P.Shards(mesh, psp, ("data",) if compress is not None else None)
 
-    def grads_once(params, batch):
-        model = Mod.Model(cfg, params, sh)
+    def grads_once(params, batch, psh):
+        model = Mod.Model(cfg, params, psh)
         loss, metrics = model(batch)
         named = list(model.named_parameters())
         # an encoder's token embedding is unused: its gradient is zeros,
@@ -193,27 +195,44 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
                            else all_reduce_mean_(mesh, axis, g), grads, psp))
 
     def compute_grads(params, batch):
-        """This pod's loss and gradients: this rank's rows (optionally in
-        microbatches), averaged over the data group."""
-        if microbatch and microbatch > 1:
-            b = next(iter(batch.values())).shape[0]
-            if b % microbatch:
-                raise ValueError(f"{b} rows do not split into {microbatch} "
-                                 f"microbatches")
-            m = b // microbatch
-            loss_a = torch.zeros((), dtype=torch.float32,
-                                 device=next(iter(batch.values())).device)
-            grads_a = T.tree_map(torch.zeros_like, params)
-            for i in range(microbatch):
-                mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-                loss, metrics, grads = grads_once(params, mb)
-                loss_a = loss_a + loss
-                grads_a = T.tree_map(torch.add, grads_a, grads)
-            loss = loss_a / microbatch
-            grads = T.tree_map(lambda g: g / microbatch, grads_a)
-        else:
-            loss, metrics, grads = grads_once(params, batch)
-        return mean_over("data", loss, metrics, grads)
+        """This pod's loss and gradients, as the reference's: ``batch``
+        (global, or the pod's under ``compress``) cut into ``microbatch``
+        parts of consecutive rows, the losses and gradients of each whole
+        part summed in order and divided, then averaged over the data
+        group. The rank takes its share of each part (``batch_share``
+        over the batch ranks); a short or empty share is padded to the
+        full share with the part's first row, which weighs zero but runs
+        every collective with the other ranks."""
+        n = next(iter(batch.values())).shape[0]
+        parts = microbatch or 1
+        if n % parts:
+            raise ValueError(f"a batch of {n} rows does not split into "
+                             f"{parts} microbatches")
+        m = n // parts
+        share, size = Sh.batch_share(mesh, m, sh.batch_axes)
+        dev = next(iter(batch.values())).device
+        pos = torch.arange(size, device=dev)
+        valid = pos < share.stop - share.start
+        rows = torch.where(valid, pos + share.start, 0)
+        psh = sh.with_rows(valid, m)
+
+        def part(j):
+            return grads_once(params, {k: v.index_select(0, rows + j * m)
+                                       for k, v in batch.items()}, psh)
+        if parts == 1:
+            return mean_over("data", *part(0))
+
+        def accumulate(j, carry):
+            loss_a, grads_a, _ = carry
+            loss, metrics, grads = part(j)
+            return (loss_a + loss, T.tree_map(torch.add, grads_a, grads),
+                    metrics), None
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        (loss, grads, metrics), _ = cost.loop(
+            parts, accumulate, (zero, T.tree_map(torch.zeros_like, params),
+                                None))
+        return mean_over("data", loss / parts, metrics,
+                         T.tree_map(lambda g: g / parts, grads))
 
     compressed = None
     if compress is not None:
@@ -223,17 +242,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
     def step_fn(state, batch):
         params = state["params"]
         opt_step = state["opt"]["step"]
-        n = next(iter(batch.values())).shape[0]
-        local = {k: L.shard_tokens(v[Sh.batch_slice(mesh, n)],
-                                   cfg.constrain_acts, mesh, n)
-                 for k, v in batch.items()}
         if compressed is not None:
-            # the step seeds the exchange; a meta state (a dry run) has no
-            # value to read, and its cost does not depend on it
+            # the pod's rows; the step seeds the exchange (a meta state, a
+            # dry run, has no value to read, and its cost does not depend
+            # on it)
+            n = next(iter(batch.values())).shape[0]
+            pod = Sh.batch_slice(mesh, n, ("pod",))
             step_no = 0 if opt_step.is_meta else int(opt_step)
-            loss, metrics, grads = compressed(params, local, step_no)
+            loss, metrics, grads = compressed(
+                params, {k: v[pod] for k, v in batch.items()}, step_no)
         else:
-            loss, metrics, grads = compute_grads(params, local)
+            loss, metrics, grads = compute_grads(params, batch)
             if "pod" in mesh.axis_names:
                 loss, metrics, grads = mean_over("pod", loss, metrics, grads)
 

@@ -19,9 +19,11 @@ Port of ``repro/models/layers.py``. Conventions:
     writes the step's k/v into the cache IN PLACE (the reference's serve
     step donates its cache, so its old cache is gone too).
 
-The reference's ``shard_tokens`` and ``shard_heads`` are GSPMD layout
-hints. The port places blocks explicitly (``models/parallel.py``), so here
-they state and check the layout a rank holds and change no number.
+The reference's ``shard_heads`` is a GSPMD layout hint. The port places
+blocks explicitly (``models/parallel.py``), so here it states and checks
+the layout a rank holds and changes no number. (The reference's
+``shard_tokens`` pins activations to the batch axes; the port's train step
+takes each rank's share of the batch itself, ``launch/steps.py``.)
 """
 from __future__ import annotations
 
@@ -80,19 +82,6 @@ class Init:
 def dense_init(init: Init, d_in, d_out, spec, lead=(), scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     return init.normal((*lead, d_in, d_out), scale), spec
-
-
-def shard_tokens(x, enabled: bool, mesh=None, rows=None):
-    """The reference pins a [B, S, ...] activation to batch on (pod, data)
-    at layer boundaries. A rank holds its rows of the global batch here:
-    with ``enabled``, this checks that ``x`` is a 1 / (pod x data) share of
-    ``rows`` global rows, and returns ``x`` as it is."""
-    if enabled and mesh is not None and rows is not None:
-        n = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
-        if rows % n or x.shape[0] != rows // n:
-            raise ValueError(f"{x.shape[0]} rows on a rank of a batch of "
-                             f"{rows} over {n} (pod, data) ranks")
-    return x
 
 
 def shard_heads(x, enabled: bool, mesh=None, heads=None):
@@ -451,13 +440,14 @@ def _chunk_loss(hc, lc, mc, W, vneg):
 
 
 def chunked_ce_loss(emb_params, hidden, labels, mask, chunk: int,
-                    vocab_size: int | None = None):
+                    vocab_size: int | None = None, count=None):
     """Mean next-token CE, one sequence chunk at a time.
 
     hidden: [B,S,D]; labels/mask: [B,S]. Each chunk is recomputed in
     backward (``torch.utils.checkpoint``) while gradients are taken.
     Padded vocab rows (>= vocab_size) are masked out of the partition
-    function.
+    function. ``count``: what the summed CE is divided by (default: the
+    counted tokens, at least 1).
     """
     W = unembed_matrix(emb_params)  # [Vp, D]
     B, S, D = hidden.shape
@@ -480,7 +470,7 @@ def chunked_ce_loss(emb_params, hidden, labels, mask, chunk: int,
         else:
             l, c = _chunk_loss(*args)
         tot, cnt = tot + l, cnt + c
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot / (torch.clamp_min(cnt, 1.0) if count is None else count)
 
 
 def logits_last(emb_params, hidden_last, vocab_size: int | None = None):

@@ -95,13 +95,15 @@ def _chunks(t, nC, Ck):
 
 
 def _conv_tail(t, K: int):
-    """The last K-1 rows of t [B,S,C]: the conv state after a prefill."""
+    """The last K-1 rows of t [B,S,C]: the conv state after a prefill, a
+    copy (a view would keep all S rows of t alive with the state)."""
     if t.shape[1] < K - 1:
         raise ValueError(
             f"a prefill of {t.shape[1]} tokens leaves a conv state shorter "
             f"than ssm_conv - 1 = {K - 1} rows: prompts need at least "
             f"{K - 1} tokens")
-    return t[:, t.shape[1] - (K - 1):]
+    return t[:, t.shape[1] - (K - 1):].clone(
+        memory_format=torch.contiguous_format)
 
 
 def _scan_chunks(body, h, xs, nC: int, Ck: int, extra=()):

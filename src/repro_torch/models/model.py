@@ -57,10 +57,10 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch import tree as T
+from repro_torch.launch import cost
 from . import layers as L
 from . import mamba as M
 from . import moe as MOE
@@ -211,13 +211,6 @@ def _n_groups(cfg) -> int:
     return n
 
 
-def _remat(fn, *args):
-    """``fn(*args)``, recomputed in backward while grad is enabled."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
-
-
 def _layer_shards(sh):
     """(per-layer Shards of the stacked layers, Shards of the hybrid's
     shared block), or (None, None) unplaced."""
@@ -228,26 +221,34 @@ def _layer_shards(sh):
 
 
 def _run_stack(params, cfg, x, positions, sh=None):
-    """Loop over the stacked layers; returns (hidden, aux_losses)."""
+    """Loop over the stacked layers; returns (hidden, aux_losses). Each
+    layer (a hybrid's group) is recomputed in backward under
+    ``cfg.remat``; the loop is ``cost.scan`` (trip-counted in a dry
+    run)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"moe_aux": zero, "moe_z": zero}
-    call = _remat if cfg.remat else (lambda fn, *args: fn(*args))
     layers = _layer_params(params["layers"], cfg.num_layers)
     lsh, ssh = _layer_shards(sh)
     if cfg.family == "ssm":
-        for lp in layers:
-            x = call(_ssm_layer, lp, x, cfg, None, False, lsh)[0]
-        return x, aux
+        def body(c, lp, _, call):
+            return (call(_ssm_layer, lp, c[0], cfg, None, False, lsh)[0],)
+        return cost.scan(body, (x,), layers, remat=cfg.remat)[0], \
+            {"moe_aux": zero, "moe_z": zero}
     if cfg.family == "hybrid":
         E = cfg.attn_every
-        for g in range(_n_groups(cfg)):
-            x = call(_ssm_group, layers[g * E:(g + 1) * E], params["shared"],
-                     x, cfg, positions, lsh, ssh)
-        return x, aux
-    for lp in layers:
-        x, a = call(_transformer_layer, lp, x, cfg, positions, lsh)
-        aux = {k: aux[k] + a.get(k, 0.0) for k in aux}
-    return x, aux
+
+        def body(c, lps, shared, call):
+            return (call(_ssm_group, lps, shared, c[0], cfg, positions, lsh,
+                         ssh),)
+        groups = [layers[g * E:(g + 1) * E] for g in range(_n_groups(cfg))]
+        return cost.scan(body, (x,), groups, params["shared"],
+                         cfg.remat)[0], {"moe_aux": zero, "moe_z": zero}
+
+    def body(c, lp, _, call):
+        y, a = call(_transformer_layer, lp, c[0], cfg, positions, lsh)
+        return (y, c[1] + a.get("moe_aux", 0.0), c[2] + a.get("moe_z", 0.0))
+    x, moe_aux, moe_z = cost.scan(body, (x, zero, zero), layers,
+                                  remat=cfg.remat)
+    return x, {"moe_aux": moe_aux, "moe_z": moe_z}
 
 
 def _emb(params, sh):
@@ -322,16 +323,28 @@ def forward_logits(params, cfg: ModelConfig, batch):
 
 def loss_fn(params, cfg: ModelConfig, batch, sh=None):
     """(mean loss, metrics); ``sh``: the params' placement (this rank's
-    blocks), whose rows of the batch ``batch`` is."""
+    blocks), whose rows of the batch ``batch`` is. Placed, the loss and
+    metrics are this rank's share of the batch's: its rows' summed CE
+    over the batch's counted tokens (rows that pad a short share count
+    none), times the number of batch ranks, so that their mean over the
+    ranks is the batch's loss whatever each rank holds."""
     x, positions, labels, mask = _inputs_to_hidden(params, cfg, batch, sh)
+    count = None
+    if sh is not None:
+        valid, _ = sh.batch_rows(x.shape[0], x.device)
+        mask = mask & valid[:, None]
+        count = torch.clamp_min(sh.batch_sum(
+            mask.sum().to(torch.float32)), 1.0) / sh.nranks
     x, aux = _run_stack(params, cfg, x, positions, sh)
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
     if _tp(sh):
         ce = P.chunked_ce_loss(sh["emb"], _emb(params, sh), x, labels, mask,
-                               cfg.loss_chunk, vocab_size=cfg.vocab_size)
+                               cfg.loss_chunk, vocab_size=cfg.vocab_size,
+                               count=count)
     else:
         ce = L.chunked_ce_loss(_emb(params, sh), x, labels, mask,
-                               cfg.loss_chunk, vocab_size=cfg.vocab_size)
+                               cfg.loss_chunk, vocab_size=cfg.vocab_size,
+                               count=count)
     loss = ce + 0.01 * aux["moe_aux"] + 0.001 * aux["moe_z"]
     return loss, {"ce": ce, **aux}
 
@@ -444,21 +457,25 @@ def serve_step(params, cfg: ModelConfig, tokens, cache, index: int,
     layers = _layer_params(params["layers"], cfg.num_layers)
     lsh, ssh = _layer_shards(sh)
     if cfg.family == "ssm":
-        for i, lp in enumerate(layers):
-            x = _ssm_step(lp, x, cfg, cache, i, lsh, state_dims)
+        def step(i, x):
+            return _ssm_step(layers[i], x, cfg, cache, i, lsh,
+                             state_dims), None
     elif cfg.family == "hybrid":
         E = cfg.attn_every
-        for g in range(_n_groups(cfg)):
+
+        def step(g, x):
             for i in range(g * E, (g + 1) * E):
                 x = _ssm_step(layers[i], x, cfg, cache["mamba"], i, lsh,
                               state_dims)
-            x = _cached_block(params["shared"], x, cfg, positions,
-                              cache["k"][g], cache["v"][g], index, ssh,
-                              cache_dim)
+            return _cached_block(params["shared"], x, cfg, positions,
+                                 cache["k"][g], cache["v"][g], index, ssh,
+                                 cache_dim), None
     else:
-        for i, lp in enumerate(layers):
-            x = _cached_block(lp, x, cfg, positions, cache["k"][i],
-                              cache["v"][i], index, lsh, cache_dim)
+        def step(i, x):
+            return _cached_block(layers[i], x, cfg, positions, cache["k"][i],
+                                 cache["v"][i], index, lsh, cache_dim), None
+    n = _n_groups(cfg) if cfg.family == "hybrid" else cfg.num_layers
+    x, _ = cost.loop(n, step, x)
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
     return _logits_last(params, cfg, x[:, 0], sh), cache
 
@@ -500,19 +517,23 @@ def prefill(params, cfg: ModelConfig, batch, sh=None, cache_dim=None,
     per-layer dim ``cache_dim`` and the Mamba states on ``state_dims``
     (as ``serve_step``)."""
     x, positions, _, _ = _inputs_to_hidden(params, cfg, batch, sh)
+    # the loop holds the only reference to the embedded prompt, which is
+    # freed once the first layer's output replaces it
+    first = [x]
+    del x
     layers = _layer_params(params["layers"], cfg.num_layers)
     lsh, ssh = _layer_shards(sh)
     if cfg.family == "ssm":
-        states = []
-        for lp in layers:
-            x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh,
-                               dims=state_dims)
-            states.append(st)
+        def step(i, x):
+            return _ssm_layer(layers[i], x, cfg, return_state=True, sh=lsh,
+                              dims=state_dims)
+        x, states = cost.loop(cfg.num_layers, step, first.pop())
         cache = _stack_states(states)
     elif cfg.family == "hybrid":
         E = cfg.attn_every
-        states, ks, vs = [], [], []
-        for g in range(_n_groups(cfg)):
+
+        def step(g, x):
+            states = []
             for lp in layers[g * E:(g + 1) * E]:
                 x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh,
                                    dims=state_dims)
@@ -521,19 +542,20 @@ def prefill(params, cfg: ModelConfig, batch, sh=None, cache_dim=None,
             # with no QKV bias; the hybrid configs have none
             x, k, v = _prefill_block(params["shared"], x, cfg, positions,
                                      True, ssh, cache_dim)
-            ks.append(k)
-            vs.append(v)
-        cache = {"mamba": _stack_states(states), "k": torch.stack(ks),
-                 "v": torch.stack(vs)}
+            return x, (states, k, v)
+        x, outs = cost.loop(_n_groups(cfg), step, first.pop())
+        cache = {"mamba": _stack_states([st for o in outs for st in o[0]]),
+                 "k": torch.stack([o[1] for o in outs]),
+                 "v": torch.stack([o[2] for o in outs])}
     else:
-        ks, vs = [], []
-        for lp in layers:
-            x, k, v = _prefill_block(lp, x, cfg, positions, cfg.causal, lsh,
-                                     cache_dim)
-            ks.append(k)
-            vs.append(v)
+        def step(i, x):
+            x, k, v = _prefill_block(layers[i], x, cfg, positions,
+                                     cfg.causal, lsh, cache_dim)
+            return x, (k, v)
+        x, kv = cost.loop(cfg.num_layers, step, first.pop())
         cache = ({} if cfg.family == "encoder"
-                 else {"k": torch.stack(ks), "v": torch.stack(vs)})
+                 else {"k": torch.stack([k for k, _ in kv]),
+                       "v": torch.stack([v for _, v in kv])})
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
     return _logits_last(params, cfg, x[:, -1], sh), cache
 

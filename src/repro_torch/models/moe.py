@@ -101,13 +101,22 @@ def apply_moe(p, x, cfg, sh=None):
     r = route(p, x, cfg)
 
     # --- load-balancing + z losses (Switch-style) ---
-    me = torch.mean(r.gates, dim=(0, 1))                        # [E]
-    ce = torch.mean(F.one_hot(r.topi, E).sum(2).to(torch.float32),
-                    dim=(0, 1))                                 # frac routed
-    if sh is not None:       # the batch's means, not the rank's rows'
-        me, ce = sh.batch_mean(me), sh.batch_mean(ce)
+    routed = F.one_hot(r.topi, E).sum(2).to(torch.float32)     # [B,S,E]
+    z = torch.logsumexp(r.logits, dim=-1) ** 2
+    if sh is None:
+        me = torch.mean(r.gates, dim=(0, 1))                    # [E]
+        ce = torch.mean(routed, dim=(0, 1))                     # frac routed
+        z_loss = torch.mean(z)
+    else:
+        # the batch's means over its real tokens, not the rank's rows':
+        # padding rows weigh zero; z is the rank's share (``loss_fn``)
+        valid, total = sh.batch_rows(B, x.device)
+        w = valid.to(torch.float32)[:, None]
+        n = float(total * S)
+        me = sh.batch_sum(torch.sum(r.gates * w[..., None], dim=(0, 1))) / n
+        ce = sh.batch_sum(torch.sum(routed * w[..., None], dim=(0, 1))) / n
+        z_loss = torch.sum(z * w) * sh.nranks / n
     aux_loss = E * torch.sum(me * ce)
-    z_loss = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
     aux = {"moe_aux": aux_loss, "moe_z": z_loss}
     if sh is not None and sh.tp:
         return _parallel_moe(sh, p, x, cfg, r), aux

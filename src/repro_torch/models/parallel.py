@@ -81,40 +81,62 @@ class Shards:
     """Where the leaves of a (sub)tree lie: the mesh and their pspecs;
     ``batch_axes``: the mesh axes the batch a loss averages over is split
     on (default (pod, data); a pod's own batch under the sampled
-    exchange)."""
+    exchange); ``rows``: (valid, total) of that batch as this rank holds
+    it — ``valid`` [b] bool marks the rank's rows that are real (the rest
+    pad a short share and weigh zero), ``total`` counts the real rows over
+    the batch's ranks. None: every row of every rank is real."""
 
-    def __init__(self, mesh, specs, batch_axes=None):
+    def __init__(self, mesh, specs, batch_axes=None, rows=None):
         self.mesh = mesh
         self.specs = specs
         self.m = mesh.shape.get("model", 1)
         self.r = mesh.coords.get("model", 0)
         self.batch_axes = tuple(a for a in (batch_axes or ("pod", "data"))
                                 if a in mesh.axis_names)
+        self.nranks = math.prod(mesh.shape[a] for a in self.batch_axes)
+        self.rows = rows
 
     @property
     def tp(self) -> bool:
         return self.m > 1
 
+    def _like(self, specs) -> "Shards":
+        return Shards(self.mesh, specs, self.batch_axes, self.rows)
+
     def __getitem__(self, key) -> "Shards":
-        return Shards(self.mesh, self.specs[key], self.batch_axes)
+        return self._like(self.specs[key])
 
     def __contains__(self, key) -> bool:
         return key in self.specs
 
     def unstacked(self) -> "Shards":
         """The specs of one layer of stacked ``[L, ...]`` leaves."""
-        return Shards(self.mesh, T.tree_map(lambda s: tuple(s[1:]),
-                                            self.specs), self.batch_axes)
+        return self._like(T.tree_map(lambda s: tuple(s[1:]), self.specs))
+
+    def with_rows(self, valid, total: int) -> "Shards":
+        """These shards over a batch whose rows on this rank are ``valid``
+        and number ``total`` real rows over the batch's ranks."""
+        return Shards(self.mesh, self.specs, self.batch_axes, (valid, total))
+
+    def batch_rows(self, b: int, device):
+        """(valid [b] bool, the real rows over the batch's ranks)."""
+        if self.rows is None:
+            return (torch.ones((b,), dtype=torch.bool, device=device),
+                    b * self.nranks)
+        return self.rows
 
     def model_dim(self, name: str):
         """The dim of leaf ``name`` placed on ``model``, or None."""
         spec = self.specs[name]
         return spec.index("model") if "model" in spec else None
 
-    def batch_mean(self, t):
-        """The mean of a per-rank batch statistic ``t`` over the batch's
-        ranks, whose gradient passes to each rank's own statistic as it
-        is (the step averages the ranks' gradients)."""
+    def batch_sum(self, t):
+        """The sum of a per-rank statistic ``t`` over the batch's ranks.
+        Its gradient reaches each rank's ``t`` times the number of those
+        ranks, which the step's mean of the ranks' gradients divides
+        back out (a mean over the ranks of ``nranks * t``, whose backward
+        passes the gradient as it is)."""
+        t = t * self.nranks
         for a in self.batch_axes:
             t = reduce_from(self.mesh, a, t, mean=True)
         return t
@@ -423,14 +445,14 @@ def _chunk_loss_tp(sh, hc, lc, mc, W, vneg, lo):
 
 
 def chunked_ce_loss(sh: Shards, emb_params, hidden, labels, mask,
-                    chunk: int, vocab_size=None):
+                    chunk: int, vocab_size=None, count=None):
     """``layers.chunked_ce_loss`` over a vocab split on ``model``: each
     rank's logits, the log-sum-exp across shards and the label's logit
     from its owner (a replicated vocab: the plain loss)."""
     name = _unembed_name(sh)
     if sh.model_dim(name) is None:
         return L.chunked_ce_loss(emb_params, hidden, labels, mask, chunk,
-                                 vocab_size=vocab_size)
+                                 vocab_size=vocab_size, count=count)
     W = emb_params[name]
     lo = sh.r * W.shape[0]
     B, S, D = hidden.shape
@@ -455,7 +477,7 @@ def chunked_ce_loss(sh: Shards, emb_params, hidden, labels, mask,
         else:
             l, c = _chunk_loss_tp(*args)
         tot, cnt = tot + l, cnt + c
-    return tot / torch.clamp_min(cnt, 1.0)
+    return tot / (torch.clamp_min(cnt, 1.0) if count is None else count)
 
 
 def logits_last(sh: Shards, emb_params, hidden_last, vocab_size=None):

@@ -255,9 +255,9 @@ def _collective_closed_form(cfg, kind, param_bytes: int):
         nbytes = (cfg.num_layers * per_b + emb + 6 * nC * r["rows"]
                   * min(cfg.loss_chunk, S) * 4 + act)
         leaves = len(TT.leaves(TM.abstract_params(cfg)[0]))
-        ar += 2 * (1 + leaves) + 1
-        nbytes += 2 * (16 + param_bytes) + 4
-        xpod = 16 + param_bytes
+        ar += 2 * (1 + leaves) + 1 + 2
+        nbytes += 2 * (16 + param_bytes) + 4 + 2 * 4
+        xpod = 16 + param_bytes + 4
         return ar, ag, nbytes, xpod
     kv_gather = 2 * T * r["kv_l"] * 2           # k and v, bf16
     logits = r["rows"] * r["V_l"] * 4
@@ -336,6 +336,107 @@ def test_production_cell_through_the_cli(tmp_path):
                         "matmul_flops"}
     assert hlo["matmul_flops"] > 0 and hlo["coll_bytes_xpod"] > 0
     assert hlo["coll_ops"]["all-reduce"] > 0
+
+
+# ---------------------------------------------------------------- trip counts
+TRIP_ARCHS = ("qwen2-1.5b", "granite-moe-1b-a400m", "falcon-mamba-7b",
+              "zamba2-2.7b", "hubert-xlarge", "internvl2-76b")
+TRIP_CELLS = tuple((a, k) for a in TRIP_ARCHS
+                   for k in ("train", "prefill", "decode")
+                   if not (a == "hubert-xlarge" and k == "decode"))
+
+_TRIPS = textwrap.dedent("""
+    import json
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.dryrun import measure_step
+    from repro_torch.launch.mesh import Mesh, init_dry_group
+    init_dry_group(8)
+    mesh = Mesh((2, 2, 2), ("pod", "data", "model"), device="meta")
+    out = {}
+    for arch, kind in @TRIP_CELLS@:
+        shape = ShapeConfig("smoke", @S@, @B@, kind)
+        out[f"{arch} {kind}"] = [measure_step(
+            get_smoke_config(arch), shape, mesh,
+            microbatch=2 if kind == "train" else 1, trip_counts=tc)[:2]
+            for tc in (False, True)]
+    print("RESULT " + json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def trips():
+    return _run(_TRIPS.replace("@TRIP_CELLS@", repr(TRIP_CELLS)))
+
+
+@pytest.mark.parametrize("key", [f"{a} {k}" for a, k in TRIP_CELLS])
+def test_trip_counted_walk_books_the_full_walk(trips, key):
+    """Each family's smoke train (microbatch 2), prefill and decode step at
+    (2, 2, 2): the walk that runs the first layer (and microbatch) and
+    books the rest gives the full walk's counts exactly, its temporaries'
+    peak within 1 %, the whole step's op count within 1 %, and dispatches
+    at least one op fewer per layer."""
+    (full_mem, full), (mem, got) = trips[key]
+    for k in ("flops", "matmul_flops", "hbm_bytes", "transcendental",
+              "coll_bytes", "coll_bytes_xpod", "coll_ops", "kernels"):
+        assert got[k] == full[k], (key, k, got[k], full[k])
+    assert mem["argument_size_in_bytes"] == full_mem["argument_size_in_bytes"]
+    assert abs(mem["temp_size_in_bytes"] / full_mem["temp_size_in_bytes"]
+               - 1) <= 0.01
+    assert abs(got["n_ops"] / full["n_ops"] - 1) <= 0.01
+    assert full["dispatched_ops"] == full["n_ops"]
+    layers = ref_smoke(key.split(" ")[0]).num_layers
+    assert full["dispatched_ops"] - got["dispatched_ops"] >= layers
+
+
+_TRIPS_WIDE = textwrap.dedent("""
+    import dataclasses, json
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.dryrun import measure_step
+    from repro_torch.launch.mesh import init_dry_group, make_production_mesh
+    init_dry_group(512)
+    mesh = make_production_mesh(multi_pod=True, device="meta")
+    cfg = dataclasses.replace(get_config("deepseek-67b"), num_layers=4)
+    print("RESULT " + json.dumps([measure_step(
+        cfg, SHAPES["train_4k"], mesh, 1, trip_counts=tc)[:2]
+        for tc in (False, True)]))
+""")
+
+
+def test_trip_counts_at_production_width():
+    """deepseek-67b's train_4k step at full width on (2, 16, 16), cut to 4
+    layers so that the full walk stays short: three layers are booked,
+    two of them in backward, whose peak there (the rank's 8 rows of
+    [4096, 8192] activations) the booking must place as the full walk
+    does: temporaries within 0.1 %, the counts exact."""
+    (full_mem, full), (mem, got) = _run(_TRIPS_WIDE)
+    for k in ("flops", "matmul_flops", "hbm_bytes", "transcendental",
+              "coll_bytes", "coll_bytes_xpod", "coll_ops"):
+        assert got[k] == full[k], (k, got[k], full[k])
+    assert abs(mem["temp_size_in_bytes"] / full_mem["temp_size_in_bytes"]
+               - 1) <= 1e-3
+    assert got["dispatched_ops"] < full["dispatched_ops"]
+
+
+def test_former_error_cell_walks_through_the_cli(tmp_path):
+    """deepseek-67b x train_4k on (2, 16, 16): 16 microbatches of 16 rows
+    over 32 batch ranks (the reference's global-batch parts; a rank's own
+    8 rows do not split into 16), walked to ``ok`` with trip counts."""
+    out = tmp_path / "cell.json"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "deepseek-67b", "--shape", "train_4k", "--multi-pod", "--out",
+         str(out)], capture_output=True, text=True, env=env, timeout=300,
+        cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+    cell = json.loads(out.read_text())
+    assert cell["status"] == "ok" and cell["microbatch"] == 16
+    hlo = cell["hlo_cost"]
+    assert hlo["n_ops"] > 100 * hlo["dispatched_ops"]
+    assert hlo["matmul_flops"] > 0
 
 
 # ------------------------------------------------- the kernels' meta branch

@@ -760,18 +760,15 @@ class _FakeMesh:
 
 
 def test_layout_hints_check_the_rank_blocks():
-    """``shard_tokens`` / ``shard_heads`` (the reference's GSPMD hints)
-    state the layout: a rank's rows of the batch and its block of heads;
-    they return the activation as it is, and raise on another layout."""
+    """``shard_heads`` (the reference's GSPMD hint) states the layout: a
+    rank's block of heads; it returns the activation as it is, and raises
+    on another layout."""
     from repro_torch.models import layers as TL
     mesh = _FakeMesh({"pod": 2, "data": 2, "model": 2})
     x = torch.zeros(2, 4, 3, 5)
-    assert TL.shard_tokens(x, True, mesh, rows=8) is x
     assert TL.shard_heads(x, True, mesh, heads=6) is x
     assert TL.shard_heads(x, True, mesh, heads=5) is x   # 5 % 2: no check
-    assert TL.shard_tokens(x, False, mesh, rows=7) is x
-    with pytest.raises(ValueError, match="rows"):
-        TL.shard_tokens(x, True, mesh, rows=16)
+    assert TL.shard_heads(x, False, mesh, heads=8) is x
     with pytest.raises(ValueError, match="heads"):
         TL.shard_heads(x, True, mesh, heads=8)
 
