@@ -1,0 +1,10 @@
+"""fwd_ms.train (ms), layer "train step": the stream time of the program's
+``train.forward`` spans per traced step, the sum of their CUDA-event
+intervals (device idle inside an interval counts). The span covers one
+microbatch's forward (``launch/steps.py`` ``grads_once``, around the
+model's call), two a step. Moves train_tokens_per_s."""
+from bench.metrics.program_spans import device_ms
+
+
+def read(run):
+    return device_ms(run, "train.forward")

@@ -45,6 +45,7 @@ from repro_torch import tree as T
 from repro_torch.core import COUNT, SUM, cap, conditional_prob
 from repro_torch.core.multi_sketch import MultiSketch, MultiSketchSpec
 from repro_torch.launch.mesh import all_gather, all_reduce_mean_
+from repro_torch.telemetry import spans
 
 _M32 = 0xFFFFFFFF
 
@@ -241,9 +242,10 @@ def compressed_grads_fn(compute_grads, mesh, *, axis: str = "pod",
                                         for m in names]))
         loss = packed[0]
         metrics = {m: packed[i + 1] for i, m in enumerate(names)}
-        grads = exchange_grads(mesh, grads, int(step), axis=axis, k=k,
-                               cap_frac=cap_frac, seed=seed,
-                               min_size=min_size)
+        with spans.span("exchange"):
+            grads = exchange_grads(mesh, grads, int(step), axis=axis, k=k,
+                                   cap_frac=cap_frac, seed=seed,
+                                   min_size=min_size)
         return loss, metrics, grads
 
     return wrapped

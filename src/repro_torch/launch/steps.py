@@ -37,6 +37,7 @@ from repro_torch.models import model as Mod
 from repro_torch.models import parallel as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.telemetry import spans
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
@@ -170,13 +171,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
 
     def grads_once(params, batch, psh):
         model = Mod.Model(cfg, params, psh)
-        loss, metrics = model(batch)
+        with spans.span("train.forward"):
+            loss, metrics = model(batch)
         named = list(model.named_parameters())
         # an encoder's token embedding is unused: its gradient is zeros,
         # as jax.grad gives it
-        grads = torch.autograd.grad(loss, [p for _, p in named],
-                                    allow_unused=True,
-                                    materialize_grads=True)
+        with spans.span("train.backward"):
+            grads = torch.autograd.grad(loss, [p for _, p in named],
+                                        allow_unused=True,
+                                        materialize_grads=True)
         # a leaf's gradient may come back strided (the tied embedding's):
         # the collectives and the exchange take contiguous leaves
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -240,6 +243,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
         compressed = compressed_grads_fn(compute_grads, mesh, **compress)
 
     def step_fn(state, batch):
+        with spans.span("train.step", next(iter(batch.values()))):
+            return one_step(state, batch)
+
+    def one_step(state, batch):
         params = state["params"]
         opt_step = state["opt"]["step"]
         if compressed is not None:
@@ -259,24 +266,27 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig, mesh,
         if grad_transform is not None:
             grads = grad_transform(grads, params, opt_step)
 
-        with torch.no_grad():
-            new_params, new_opt, om = adamw.apply_updates(
-                params, grads, state["opt"], opt_cfg, pspecs=psp, mesh=mesh)
-        del grads
-        new_state = {"params": new_params, "opt": new_opt}
-        if telemetry is not None:
-            # per-example loss proxies keyed step * 2^16 + example: the
-            # stride is a CONSTANT so keys stay unique across a resume with
-            # another --batch (b <= 65536, step < 32768 before int32 wraps)
-            b = next(iter(batch.values())).shape[0]
-            dev = state["tel"].keys.device
-            step_id = opt_step.to(device=dev, dtype=torch.int32)
-            tkeys = step_id * (1 << 16) + torch.arange(b, dtype=torch.int32,
-                                                       device=dev)
-            new_state["tel"] = multisketch_absorb_inline(
-                telemetry, state["tel"], tkeys,
-                loss.to(device=dev, dtype=torch.float32).reshape(1).expand(b),
-                use_kernels=True)
+        with spans.span("train.update"):
+            with torch.no_grad():
+                new_params, new_opt, om = adamw.apply_updates(
+                    params, grads, state["opt"], opt_cfg, pspecs=psp,
+                    mesh=mesh)
+            del grads
+            new_state = {"params": new_params, "opt": new_opt}
+            if telemetry is not None:
+                # per-example loss proxies keyed step * 2^16 + example: the
+                # stride is a CONSTANT so keys stay unique across a resume
+                # with another --batch (b <= 65536, step < 32768 before
+                # int32 wraps)
+                b = next(iter(batch.values())).shape[0]
+                dev = state["tel"].keys.device
+                step_id = opt_step.to(device=dev, dtype=torch.int32)
+                tkeys = step_id * (1 << 16) + torch.arange(
+                    b, dtype=torch.int32, device=dev)
+                new_state["tel"] = multisketch_absorb_inline(
+                    telemetry, state["tel"], tkeys,
+                    loss.to(device=dev, dtype=torch.float32).reshape(1)
+                    .expand(b), use_kernels=True)
         return new_state, {"loss": loss, **metrics, **om}
 
     return step_fn, st_specs

@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.telemetry import spans
+
 _NEG = -1e30
 
 
@@ -271,7 +273,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, Cq, Ck, q_offset, kv_valid_len):
         qpos, kpos = _chunk_positions(q.shape[1], k.shape[1], Cq, Ck,
                                       q_offset, kv_valid_len)
-        out, lse = _flash_forward(q, k, v, causal, Cq, Ck, qpos, kpos)
+        with spans.span("attn", q):
+            out, lse = _flash_forward(q, k, v, causal, Cq, Ck, qpos, kpos)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.plan = (causal, Cq, Ck, qpos, kpos)
         return out
@@ -279,7 +282,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, out, lse, do, *ctx.plan)
+        with spans.span("attn", do):
+            dq, dk, dv = _flash_backward(q, k, v, out, lse, do, *ctx.plan)
         return dq, dk, dv, None, None, None, None, None
 
 

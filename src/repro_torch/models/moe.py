@@ -26,6 +26,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.telemetry import spans
+
 from .layers import Init, apply_mlp, dense_init, init_mlp
 
 
@@ -98,7 +100,13 @@ def apply_moe(p, x, cfg, sh=None):
     sum of the ranks' parts (see ``models/parallel.py``)."""
     B, S, D = x.shape
     E, k = _n_experts(cfg), cfg.moe_top_k
-    r = route(p, x, cfg)
+    with spans.span("moe.route", x):
+        r = route(p, x, cfg)
+    if spans.recording() and torch._C._current_graph_task_id() < 0:
+        # the buffers' fill in the forward (remat's recompute runs inside
+        # backward's graph task, and is not counted again)
+        spans.count("moe.kept", r.keep)
+        spans.count("moe.slots", B * E * moe_capacity(S, cfg))
 
     # --- load-balancing + z losses (Switch-style) ---
     routed = F.one_hot(r.topi, E).sum(2).to(torch.float32)     # [B,S,E]
