@@ -224,7 +224,12 @@ Phases (any failure exits non-zero; nothing is caught):
    exchange, which samples each rank's block there), every K1 / K2
    launch held against its plain version at the call, a Mamba block
    ([6, 2560, 2560] of wx / wz / out_proj) among the sampled ones, and K1
-   and K2 timed at that block.
+   and K2 timed at that block; (f) K7 on heads split over model:
+   qwen2-1.5b at 2 layers in bf16, mesh (1, 1, 2) in 2 processes (6 q
+   heads and 1 kv head a rank), 2 train steps, every K7 forward and
+   backward call held at the call against the plain loop on the same
+   shards through phase 14's gate, the ranks' losses equal, the launches
+   counted.
 12. the dry run against the card (``repro_torch.launch.dryrun``): (a) the
    meta twin of 7a's step (qwen2-1.5b, batch 8 x 128, the exchange and
    the telemetry fold, one process), walked with trip counts (the layer
@@ -248,6 +253,23 @@ Phases (any failure exits non-zero; nothing is caught):
    K1 and K2 launched on every rank. Every kernel launch of the phase is
    recorded at the call and held against its plain version on its
    inputs.
+14. K7, attention (``kernels/attention.py``): the kernels against their
+   plain loop in bf16 on every ``ATTN_CASES`` row (granite-moe's
+   [4, 4,096, 16/8, 64], head dims 48 to 256, MQA, a group of 6,
+   non-causal, q_offset with kv_valid_len, Sq != Sk, ragged tiles): out,
+   dq, dk, dv through ``attn_gate`` (every tile of 64 positions within
+   ATTN_TILE_GAP in norm, at most ATTN_ULP_SHARE of the elements more
+   than one bf16 ulp apart) and the same bits run to run; at granite's
+   shape three faults planted in the plain loop (a skipped diagonal kv
+   tile, a skipped last kv tile, the split's mid and lo parts dropped)
+   each break the gate; then at granite's shape the forward's and
+   backward's
+   times beside the reference's products at the bf16 peak, the plain
+   loop's and scaled_dot_product_attention's (a yardstick the port never
+   calls); a granite-moe train step (24 layers, 2 microbatches, 4 x 256)
+   under a profiler counting 144 ``attn.kernel`` and as many launches.
+   (The fp32 checks of phases 8-11 run attention's plain loop: the kernel
+   takes bf16 alone; 11f runs it in bf16.)
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
@@ -270,7 +292,8 @@ times at 11b's largest block; every row's ``placement_ssm_launches`` are
 11d's training summed over its 4 ranks, and K1's and K2's
 ``placement_ssm_block_*`` keys their times at 11d's largest Mamba
 block; every row's ``examples_launches`` are phase 13's, summed over the
-twins and the demo's 8 ranks.
+twins and the demo's 8 ranks. K7's row (``attention``) is phase 14's,
+its ``placement_launches`` 11f's summed over its 2 ranks.
 """
 from __future__ import annotations
 
@@ -341,6 +364,19 @@ VLM_ARCH = "internvl2-76b"
 VLM_LAYERS = 8                      # depth cut from 80: 35.8 GB in fp32
 VLM_TRAFFIC = ["--batch", "8", "--prompt-len", "768", "--gen", "64"]
 SERVE_RUN_LAUNCHES = (2, 4, 2, 1, 2, 0)  # a serve.main run's telemetry
+
+
+def plain_attention():
+    """K7's plain loop on every device until ``.close()``: for the checks
+    that hold an fp32 model on the card against its own forward, a twin or
+    the CPU (the kernel takes bf16 alone)."""
+    from repro_torch.kernels import attention as KA
+    stack = contextlib.ExitStack()
+    stack.callback(setattr, KA, "attention_forward", KA.attention_forward)
+    stack.callback(setattr, KA, "attention_backward", KA.attention_backward)
+    KA.attention_forward = KA.attention_forward_plain
+    KA.attention_backward = KA.attention_backward_plain
+    return stack
 
 
 def _fail(msg: str):
@@ -2278,6 +2314,7 @@ def _decode_consistency(torch, Mod, cfg, dev, tol: float, params=None):
                f"{cfg.name}: the full forward could drop choices")
     old = Mod.ACT_DTYPE
     Mod.ACT_DTYPE = torch.float32
+    plain = plain_attention()
     try:
         if params is None:
             params, _ = Mod.init_model(cfg, seed=0, device=dev)
@@ -2298,6 +2335,7 @@ def _decode_consistency(torch, Mod, cfg, dev, tol: float, params=None):
         scale = float(full[..., :V].abs().max())
     finally:
         Mod.ACT_DTYPE = old
+        plain.close()
     _check(np.isfinite(scale) and err <= tol * max(scale, 1.0)
            and perr <= tol * max(scale, 1.0),
            f"{cfg.name} fp32 decode consistency: steps {err}, prefill "
@@ -2701,6 +2739,7 @@ def _vlm_consistency(torch, Mod, cfg, dev, tol: float = 5e-3):
     P, S, V = cfg.frontend_tokens, CONSISTENCY_S, cfg.vocab_size
     old = Mod.ACT_DTYPE
     Mod.ACT_DTYPE = torch.float32
+    plain = plain_attention()
     try:
         params, _ = Mod.init_model(cfg, seed=0, device=dev)
         g = torch.Generator(device=dev).manual_seed(9)
@@ -2740,6 +2779,7 @@ def _vlm_consistency(torch, Mod, cfg, dev, tol: float = 5e-3):
         del params, full, cache
     finally:
         Mod.ACT_DTYPE = old
+        plain.close()
     _check(np.isfinite(scale) and err <= tol * max(scale, 1.0)
            and perr <= tol * max(scale, 1.0),
            f"{cfg.name} fp32 decode consistency: steps {err}, prefill "
@@ -2895,6 +2935,7 @@ def phase_encoder_vlm(torch, K, dev, card: str):
     p2 = {**params, "layers": TT.tree_map(lambda t: t[:2], params["layers"])}
     old = Mod.ACT_DTYPE
     Mod.ACT_DTYPE = torch.float32
+    plain = plain_attention()
     try:
         x2 = frames(2, ENCODER_S)
         with torch.no_grad():
@@ -2902,6 +2943,7 @@ def phase_encoder_vlm(torch, K, dev, card: str):
         last, _ = Mod.prefill(p2, two, x2)
     finally:
         Mod.ACT_DTYPE = old
+        plain.close()
     V = cfg.vocab_size
     perr = float((last[:, :V] - full[:, -1, :V]).abs().max())
     scale = float(full[..., :V].abs().max())
@@ -3016,6 +3058,8 @@ def phase_encoder_vlm(torch, K, dev, card: str):
 PLACE_FSDP_ARCH = "qwen2-moe-a2.7b"  # 11a: its config sets fsdp
 PLACE_TP_ARCH = "qwen2-1.5b"         # 11b
 PLACE_CARD_ARCHS = ("gemma-2b", "phi3-mini-3.8b")   # 11c, full depth
+PLACE_K7_ARCH = "qwen2-1.5b"         # 11f: bf16, K7 on heads split in two
+PLACE_K7_STEPS = 2
 # depth cut from 24 (11a) and 28 (11b): 11a's FSDP gathers every layer
 # through the host in each step (~0.3 GB/s of gloo on the card's host),
 # so its depth is what its time scales with (at 1 layer a routing flip in
@@ -3417,9 +3461,15 @@ def _place_worker(sub: str, rank: int, world: int, port: str,
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import model as Mod
     dev = torch.device(WORKER_DEVICE)
-    Mod.ACT_DTYPE = torch.float32
+    if sub == "f":         # 11f runs bf16, through K7
+        plain = contextlib.ExitStack()
+    else:
+        Mod.ACT_DTYPE = torch.float32
+        plain = plain_attention()
     res = {"rank": rank}
-    if sub == "a":
+    if sub == "f":
+        res.update(_place_k7_worker(torch, dev))
+    elif sub == "a":
         cfg = _place_cfg(PLACE_FSDP_ARCH)
         mesh = Mesh((1, 2, 1), AX3, device=dev)
         res["train"] = _place_train(torch, cfg, mesh, dev,
@@ -3443,6 +3493,7 @@ def _place_worker(sub: str, rank: int, world: int, port: str,
         res.update(_place_exchange_worker(
             torch, K, dev, arch=PLACE_SSM_ARCHS[1], steps=PLACE_SSM_STEPS,
             formula=False))
+    plain.close()
     if rank != 0:          # rank 0 carries the gathered logits
         for key in ("serve", *PLACE_CARD_ARCHS, *PLACE_SSM_ARCHS):
             if key in res:
@@ -3453,6 +3504,108 @@ def _place_worker(sub: str, rank: int, world: int, port: str,
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def _place_k7_worker(torch, dev):
+    """11f's rank: PLACE_K7_STEPS bf16 train steps of PLACE_K7_ARCH at
+    (1, 1, 2), its q heads split over model, every K7 call held against
+    the plain loop on the same shards at the call (``attn_gate``) ->
+    {losses, K7 launches, forward and backward calls held, the (q, kv)
+    heads of the shards, the largest gaps per tensor, the limits broken}."""
+    from repro_torch.kernels import attention as KA
+    from repro_torch.launch import sharding as Sh
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as Mod
+    from repro_torch.optim import adamw
+    cfg = _place_cfg(PLACE_K7_ARCH)
+    mesh = Mesh((1, 1, 2), AX3, device=dev)
+    fwd, bwd = KA.attention_forward, KA.attention_backward
+    seen = {"fwd": 0, "bwd": 0, "heads": set(), "gaps": {}, "broken": []}
+
+    def hold(names, got, want, q, k):
+        seen["heads"].add((q.shape[2], k.shape[2]))
+        gaps = {n: attn_gaps(torch, a, b) for n, a, b in zip(names, got,
+                                                             want)}
+        for n, g in gaps.items():
+            worst = seen["gaps"].setdefault(n, dict.fromkeys(g, 0.0))
+            for key, x in g.items():
+                worst[key] = max(worst[key], x)
+        seen["broken"] += attn_gate(gaps)
+
+    def fwd_held(q, k, v, causal, Cq, Ck, q_offset, kv_valid_len):
+        out, lse = fwd(q, k, v, causal, Cq, Ck, q_offset, kv_valid_len)
+        want, _ = KA.attention_forward_plain(q, k, v, causal, Cq, Ck,
+                                             q_offset, kv_valid_len)
+        hold(("out",), (out,), (want,), q, k)
+        seen["fwd"] += 1
+        return out, lse
+
+    def bwd_held(q, k, v, out, lse, do, causal, Cq, Ck, q_offset,
+                 kv_valid_len):
+        plan = (causal, Cq, Ck, q_offset, kv_valid_len)
+        got = bwd(q, k, v, out, lse, do, *plan)
+        po, pl = KA.attention_forward_plain(q, k, v, *plan)
+        want = KA.attention_backward_plain(q, k, v, po, pl, do, *plan)
+        hold(("dq", "dk", "dv"), got, want, q, k)
+        seen["bwd"] += 1
+        return got
+    params, _ = Mod.init_model(cfg, seed=0, device=dev)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=1,
+                          total_steps=PLACE_K7_STEPS)
+    step_fn, specs = St.make_train_step(cfg, opt, mesh)
+    state = Sh.place({"params": params, "opt": adamw.init_opt_state(params)},
+                     specs, mesh)
+    del params
+    batches, _ = _place_batches(torch, cfg, dev, steps=PLACE_K7_STEPS)
+    KA.attention_forward, KA.attention_backward = fwd_held, bwd_held
+    KA.launch.launches = 0
+    losses = []
+    try:
+        for b in batches:
+            state, m = step_fn(state, b)
+            losses.append(float(m["loss"]))
+    finally:
+        KA.attention_forward, KA.attention_backward = fwd, bwd
+    return {"losses": losses, "launches": KA.launch.launches,
+            "fwd": seen["fwd"], "bwd": seen["bwd"],
+            "heads": sorted(seen["heads"]), "gaps": seen["gaps"],
+            "broken": seen["broken"][:8]}
+
+
+def phase_placement_k7(torch, card: str) -> int:
+    """11f: PLACE_K7_ARCH in bf16 at (1, 1, 2) in 2 gloo processes, K7 on
+    each rank's share of the heads, every call held against the plain
+    loop on the same shards. Returns K7's launches over the ranks."""
+    cfg = _place_cfg(PLACE_K7_ARCH)
+    t0 = time.perf_counter()
+    ranks = _spawn_place("f", 2)
+    wall = time.perf_counter() - t0
+    want_heads = cfg.num_heads // 2
+    for r in ranks:
+        _check(r["losses"] == ranks[0]["losses"]
+               and all(np.isfinite(r["losses"])),
+               f"11f: losses {[x['losses'] for x in ranks]}")
+        _check(not r["broken"], f"11f: rank {r['rank']}: K7 beyond the "
+               f"gate: {r['broken']}")
+        _check(r["bwd"] == cfg.num_layers * PLACE_K7_STEPS
+               and r["launches"] == r["fwd"] + r["bwd"],
+               f"11f: rank {r['rank']}: {r['launches']} launches, "
+               f"{r['fwd']} forward and {r['bwd']} backward calls held")
+        _check(all(h == want_heads for h, _ in r["heads"]),
+               f"11f: rank {r['rank']} ran heads {r['heads']}")
+    launches = sum(r["launches"] for r in ranks)
+    print(f"11f K7 on split heads: {PLACE_K7_ARCH} at {cfg.num_layers} "
+          f"layers in bf16, mesh (1, 1, 2), 2 gloo processes on {card}: "
+          f"(q, kv) heads a rank {ranks[0]['heads']} of ({cfg.num_heads}, "
+          f"{cfg.num_kv_heads}); losses {ranks[0]['losses']}; K7 launches "
+          f"{[r['launches'] for r in ranks]} ({ranks[0]['fwd']} forward, "
+          f"{ranks[0]['bwd']} backward a rank), each held against the "
+          f"plain loop on its shards: worst "
+          f"{attn_text(ranks[0]['gaps'])} (rank 0), "
+          f"{attn_text(ranks[1]['gaps'])} (rank 1); phase wall "
+          f"{wall:.1f} s", flush=True)
+    return launches
 
 
 def _place_exchange_worker(torch, K, dev, arch=PLACE_TP_ARCH,
@@ -3570,6 +3723,7 @@ def phase_placement(torch, K, dev, card: str):
     from repro_torch.models import model as Mod
     old = Mod.ACT_DTYPE
     Mod.ACT_DTYPE = torch.float32
+    plain = plain_attention()
     one = Mesh((1, 1, 1), AX3, device=dev)
     try:
         # --- 11a: FSDP at full width, 2 layers --------------------------
@@ -3706,6 +3860,7 @@ def phase_placement(torch, K, dev, card: str):
         ssm_stats, ssm_counts = phase_placement_ssm(torch, dev, card, one)
     finally:
         Mod.ACT_DTYPE = old
+        plain.close()
     return ({name: {**{f"placement_block_{k}": v for k, v in s.items()},
                     **{f"placement_ssm_block_{k}": v
                        for k, v in ssm_stats[name].items()}}
@@ -4086,6 +4241,288 @@ def member_triples(torch, sk):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 14, K7: attention forward and backward against its plain loop
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, K, hd, causal, q_offset, kv_valid_len, chunk): granite-moe's
+# microbatch first, then head dims 80 / 96 / 128 / 256, MQA, a large GQA
+# group, non-causal, q_offset with kv_valid_len, Sq != Sk, ragged tiles
+ATTN_CASES = (
+    (4, 4096, 4096, 16, 8, 64, True, 0, None, 512),
+    (2, 512, 512, 8, 2, 80, True, 0, None, 128),
+    (2, 512, 512, 8, 8, 96, True, 0, None, 128),
+    (2, 512, 512, 12, 2, 128, True, 0, None, 128),
+    (1, 512, 512, 8, 1, 256, True, 0, None, 128),
+    (2, 300, 300, 16, 16, 80, False, 0, None, 300),
+    (2, 64, 512, 8, 2, 64, True, 448, 500, 64),
+    (2, 128, 256, 4, 4, 64, False, 0, 200, 128),
+    (1, 100, 260, 6, 3, 48, True, 0, None, 260),
+    (1, 200, 200, 4, 2, 32, True, 0, None, 200),
+)
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+# K7's gate against the plain loop, per tensor (out, dq, dk, dv). Both sides
+# compute the same fp32 values in another order and round each result to
+# bf16; besides, the plain loop rounds p to bf16 at the running maximum of
+# its 64..512-key chunks and the kernel at that of its 64-key tiles. So most
+# elements agree to the bit or one ulp, and no stretch of positions drifts.
+# On one H100 over three seeds of every ATTN_CASES row the kernel read at
+# most 2.4e-3 in a tile, and over-ulp shares of 0.085 (out), 0.017 (dq),
+# 0.020 (dk) and 4.7e-4 (dv); at granite's shape the planted faults
+# (``attn_faults``) read 0.10 or more in a tile (a skipped kv tile) and
+# 0.13 over-ulp in dq, dk and dv (the split's mid and lo parts dropped).
+ATTN_TILE = 64                  # positions of one tile of the norm gate
+ATTN_TILE_GAP = 2.0 ** -6       # largest ||got - want|| / ||want|| a tile
+ATTN_ULP_SHARE = {"out": 0.25, "dq": 0.05, "dk": 0.05, "dv": 0.01}
+                                # share of elements > 1 bf16 ulp apart
+ATTN_FAULT_FROM = 1024          # planted "diagonal" fault: from this row on
+ATTN_NAMES = ("out", "dq", "dk", "dv")
+ATTN_STEP_CALLS = 24 * 2 * 3    # granite: layers x microbatches x (fwd,
+                                # remat's recompute, bwd)
+
+
+def attn_inputs(torch, dev, case, seed: int):
+    """bf16 q, k, v and dO of an ATTN_CASES row, made on the card."""
+    B, Sq, Sk, H, Kh, hd = case[:6]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(
+        torch.bfloat16)
+    return mk(B, Sq, H, hd), mk(B, Sk, Kh, hd), mk(B, Sk, Kh, hd), \
+        mk(B, Sq, H, hd)
+
+
+def attn_gaps(torch, got, want) -> dict:
+    """One tensor [B, S, heads, hd] against its plain value: ``tile``, the
+    largest ||got - want|| / ||want|| over tiles of ATTN_TILE positions of
+    one (batch, head) (inf where want's tile is 0 and got's is not);
+    ``norm``, the same over the whole tensor; ``over_ulp``, the share of
+    elements more than one bf16 ulp of want apart."""
+    a, b = got.float(), want.float()
+    d = a - b
+    B, S, Hh, D = b.shape
+    n = -(-S // ATTN_TILE)
+
+    def tile_norms(x):
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n * ATTN_TILE - S))
+        return x.reshape(B, n, ATTN_TILE, Hh, D).square().sum((2, 4)).sqrt()
+    dt, bt = tile_norms(d), tile_norms(b)
+    tile = torch.where(bt > 0, dt / bt.clamp_min(1e-30),
+                       torch.where(dt > 0, float("inf"), 0.0))
+    ulp = torch.exp2(torch.floor(torch.log2(
+        b.abs().clamp_min(2.0 ** -126))) - 7)
+    return dict(tile=float(tile.max()) if tile.numel() else 0.0,
+                norm=float(d.norm() / b.norm().clamp_min(1e-30)),
+                over_ulp=float((d.abs() > ulp).float().mean())
+                if d.numel() else 0.0)
+
+
+def attn_gate(gaps: dict) -> list:
+    """{tensor name: attn_gaps} -> the limits broken, as text (none: the
+    kernel's result passes)."""
+    broken = []
+    for name, g in gaps.items():
+        if not g["tile"] <= ATTN_TILE_GAP:
+            broken.append(f"{name} tile {g['tile']:.3e} > {ATTN_TILE_GAP}")
+        if not g["over_ulp"] <= ATTN_ULP_SHARE[name]:
+            broken.append(f"{name} over-ulp {g['over_ulp']:.3e} > "
+                          f"{ATTN_ULP_SHARE[name]}")
+    return broken
+
+
+def attn_faults(torch, KA, Sk: int, start: int = ATTN_FAULT_FROM) -> dict:
+    """Planted faults, made in the plain loop: name -> a context in which
+    ``attention_forward_plain`` / ``_backward_plain`` give what a kernel
+    with that fault would: "diagonal" skips the 64-key tile that holds a
+    row's own key, for rows at ``start`` or past it; "last_tile" skips
+    the last 64 keys; "hi_only" drops the mid and lo parts of the fp32
+    operand of dV, dK and dQ (P or dS rounded to bf16)."""
+    from unittest import mock
+    mask, einsum = KA._mask, torch.einsum
+
+    def keys(kp, device):
+        return torch.arange(kp[0], kp[0] + len(kp), device=device)
+
+    def diagonal(qp, kp, causal, device):
+        q = torch.arange(qp[0], qp[0] + len(qp), device=device)[:, None]
+        k = keys(kp, device)[None, :]
+        skip = (q // 64 == k // 64) & (q >= start)
+        return mask(qp, kp, causal, device) & ~skip[None, :, None, None, :]
+
+    def last_tile(qp, kp, causal, device):
+        keep = keys(kp, device) < Sk - 64
+        return mask(qp, kp, causal, device) & keep[None, None, None, None, :]
+
+    def hi_only(spec, x, y):
+        if spec in ("bqkgc,bqkgh->bckh", "bqkgc,bckh->bqkgh"):
+            x = x.to(torch.bfloat16).to(x.dtype)
+        return einsum(spec, x, y)
+    return {"diagonal": lambda: mock.patch.object(KA, "_mask", diagonal),
+            "last_tile": lambda: mock.patch.object(KA, "_mask", last_tile),
+            "hi_only": lambda: mock.patch.object(torch, "einsum", hi_only)}
+
+
+def attention_plain(KA, case, q, k, v, do):
+    """The plain loop's (out, dq, dk, dv) of one case."""
+    causal, q_offset, kv_valid, chunk = case[6:]
+    Cq, Ck = min(chunk, q.shape[1]), min(chunk, k.shape[1])
+    op, lp = KA.attention_forward_plain(q, k, v, causal, Cq, Ck, q_offset,
+                                        kv_valid)
+    gp = KA.attention_backward_plain(q, k, v, op, lp, do, causal, Cq, Ck,
+                                     q_offset, kv_valid)
+    return (op, *gp)
+
+
+def attention_pair(KA, case, q, k, v, do):
+    """(kernel, plain) results of one case: (out, dq, dk, dv) each."""
+    causal, q_offset, kv_valid = case[6:9]
+    ok, lk = KA.attention_forward_kernel(q, k, v, causal, q_offset, kv_valid)
+    gk = KA.attention_backward_kernel(q, k, v, ok, lk, do, causal, q_offset,
+                                      kv_valid)
+    return (ok, *gk), attention_plain(KA, case, q, k, v, do)
+
+
+def attn_flops(case, passes: int) -> float:
+    """The reference's tensor operations of ``passes`` S x Sk products
+    (forward 2: s, pv; backward 5: s, dv, dp, dk, dq) over the pairs the
+    mask leaves visible."""
+    B, Sq, Sk, H, Kh, hd, causal = case[:7]
+    pairs = Sq * (Sq + 1) / 2 if causal and Sq == Sk else Sq * Sk
+    return passes * 2.0 * B * H * hd * pairs
+
+
+def attn_text(gaps: dict) -> str:
+    return ", ".join(f"{name} tile {g['tile']:.3e} norm {g['norm']:.3e} "
+                     f"over-ulp {g['over_ulp']:.3e}"
+                     for name, g in gaps.items())
+
+
+def attention_gaps(torch, KA, dev, n: int, case):
+    """Case ``n`` of ATTN_CASES: the kernel against the plain loop, and
+    its bits run to run -> ({tensor: attn_gaps}, and at granite's shape
+    (n 0) {fault: {tensor: attn_gaps of the fault's plain loop}})."""
+    q, k, v, do = attn_inputs(torch, dev, case, 100 + n)
+    got, want = attention_pair(KA, case, q, k, v, do)
+    again, _ = attention_pair(KA, case, q, k, v, do)
+    torch.cuda.synchronize()
+    for name, a, c in zip(ATTN_NAMES, got, again):
+        _check(torch.equal(a, c), f"K7 {case}: {name} not run-to-run "
+               "identical")
+        _check(bool(torch.isfinite(a.float()).all()),
+               f"K7 {case}: {name} not finite")
+    gaps = {name: attn_gaps(torch, a, b)
+            for name, a, b in zip(ATTN_NAMES, got, want)}
+    faults = {}
+    if n == 0:
+        for fault, planted in attn_faults(torch, KA, case[2]).items():
+            with planted():
+                bad = attention_plain(KA, case, q, k, v, do)
+            faults[fault] = {name: attn_gaps(torch, a, b)
+                             for name, a, b in zip(ATTN_NAMES, bad, want)}
+    return gaps, faults
+
+
+def phase_attention(torch, dev):
+    """K7 against its plain loop on every ATTN_CASES row (bf16 in and
+    out) through ``attn_gate``, and its bits run to run; at granite's
+    shape each planted fault of ``attn_faults`` must break the gate. Then
+    at granite's shape the kernel's, the plain loop's and
+    scaled_dot_product_attention's times (the last a yardstick the port
+    never calls)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as KA
+    gaps, faults = {}, {}
+    for n, case in enumerate(ATTN_CASES):
+        gaps[n], found = attention_gaps(torch, KA, dev, n, case)
+        faults.update(found)
+        print(f"K7 case {case}: {attn_text(gaps[n])}", flush=True)
+        broken = attn_gate(gaps[n])
+        _check(not broken, f"K7 {case}: beyond the gate: {broken}")
+    for fault, fg in faults.items():
+        print(f"K7 planted fault {fault} at {ATTN_CASES[0][:6]}: "
+              f"{attn_text(fg)}; broken: {attn_gate(fg)}", flush=True)
+        _check(attn_gate(fg), f"K7: the planted fault {fault} passes the "
+               "gate")
+    case = ATTN_CASES[0]
+    B, S, _, H, Kh, hd, causal, _, _, chunk = case
+    q, k, v, do = attn_inputs(torch, dev, case, 7)
+    o, lse = KA.attention_forward_kernel(q, k, v, True)
+    t_fwd = cuda_ms(torch, lambda: KA.attention_forward_kernel(q, k, v,
+                                                               True))
+    t_bwd = cuda_ms(torch, lambda: KA.attention_backward_kernel(
+        q, k, v, o, lse, do, True))
+    op, lp = KA.attention_forward_plain(q, k, v, True, chunk, chunk, 0, None)
+    p_fwd = cuda_ms(torch, lambda: KA.attention_forward_plain(
+        q, k, v, True, chunk, chunk, 0, None), reps=3, inner=1)
+    p_bwd = cuda_ms(torch, lambda: KA.attention_backward_plain(
+        q, k, v, op, lp, do, True, chunk, chunk, 0, None), reps=3, inner=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kt, vt = (t.repeat_interleave(H // Kh, dim=1) for t in (kt, vt))
+    l_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    lo = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    dot = do.transpose(1, 2)
+    l_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        lo, (qg, kg, vg), dot, retain_graph=True))
+    b_fwd = attn_flops(case, 2) / BF16_OPS_PER_S * 1e3
+    b_bwd = attn_flops(case, 5) / BF16_OPS_PER_S * 1e3
+    print(f"K7 attention {case[:6]} causal: kernel fwd {t_fwd:.3f} ms "
+          f"bwd {t_bwd:.3f} ms, bound (the reference's products at the "
+          f"bf16 peak) fwd {b_fwd:.3f} ms bwd {b_bwd:.3f} ms, plain loop "
+          f"fwd {p_fwd:.1f} ms bwd {p_bwd:.1f} ms, "
+          f"scaled_dot_product_attention fwd {l_fwd:.3f} ms bwd "
+          f"{l_bwd:.3f} ms", flush=True)
+    worst = {name: {key: max(g[name][key] for g in gaps.values())
+                    for key in ("tile", "norm", "over_ulp")}
+             for name in ATTN_NAMES}
+    fault_max = {fault: {key: max(g[key] for g in fg.values())
+                         for key in ("tile", "over_ulp")}
+                 for fault, fg in faults.items()}
+    del q, k, v, do, o, lse, op, lp, qt, kt, vt, qg, kg, vg, lo, dot
+    step_calls = attn_step_calls(torch, dev, KA)
+    return dict(ms=t_fwd, bwd_ms=t_bwd, bound_ms=b_fwd, bwd_bound_ms=b_bwd,
+                bound_by="operations", plain_ms=p_fwd, plain_bwd_ms=p_bwd,
+                library_ms=l_fwd, library_bwd_ms=l_bwd,
+                step_launches=step_calls, worst_gaps=worst,
+                planted_faults=fault_max)
+
+
+def attn_step_calls(torch, dev, KA) -> int:
+    """The ``attn.kernel`` count of one granite-moe train step (24 layers,
+    2 microbatches of 2 x 256 tokens) under a profiler, checked against
+    ATTN_STEP_CALLS and the wrapper's own launch count."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_model
+    from repro_torch.optim import adamw
+    from repro_torch.telemetry import spans
+    cfg = get_config(MOE_ARCH)
+    mesh = Mesh((1, 1, 1), AX3, device=dev)
+    step, _ = make_train_step(cfg, adamw.OptConfig(), mesh, microbatch=2)
+    params, _ = init_model(cfg, seed=0, device=dev)
+    state = {"params": params, "opt": adamw.init_opt_state(params)}
+    del params
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (4, 256)).astype(np.int32)).to(dev)
+    KA.launch.launches = 0
+    spans.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        state, _ = step(state, {"tokens": toks})
+        torch.cuda.synchronize()
+    counted = sum(int(c.value) for c in spans.counts()
+                  if c.name == "attn.kernel")
+    spans.reset()
+    _check(counted == ATTN_STEP_CALLS == KA.launch.launches,
+           f"K7: {counted} attn.kernel counts and {KA.launch.launches} "
+           f"launches "
+           f"in a granite step, expected {ATTN_STEP_CALLS}")
+    del state
+    torch.cuda.empty_cache()
+    return counted
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4146,11 +4583,14 @@ def main() -> int:
     done("10")
     place_stats, place_counts, place_ssm_counts = phase_placement(
         torch, K, dev, card)
+    attn_place = phase_placement_k7(torch, card)
     done("11")
     phase_dryrun(torch, dev, card)
     done("12")
     example_counts = phase_examples(torch, K, card)
     done("13")
+    attn_stats = phase_attention(torch, dev)
+    done("14")
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),
@@ -4181,6 +4621,11 @@ def main() -> int:
                      "placement_launches": place_counts[name],
                      "placement_ssm_launches": place_ssm_counts[name],
                      "examples_launches": example_counts[name]})
+    rows.append({"name": "attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/attention.cu",
+                 "replaces": "none (src/repro/models/layers.py _make_flash "
+                             "is plain JAX)", **attn_stats,
+                 "placement_launches": attn_place})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

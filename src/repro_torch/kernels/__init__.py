@@ -11,6 +11,10 @@ K3 ``compact``      retention_priority     (repro/kernels/compact.py)
 K4 ``segquery``     segment_query_slab     (repro/kernels/segquery.py)
 K5 ``servicecost``  service_cost_slab      (repro/kernels/servicecost.py)
 K6 ``rankcount``    rank_counts            (repro/kernels/rankcount.py)
+K7 ``attention``    attention_forward/_backward (none: the reference's
+                    attention is plain JAX; its forward and backward
+                    launches counted together in
+                    ``attention.launch.launches``, apart from K1-K6's)
 """
 from .blockselect import (batched_block_bottomk, batched_bottomk_select,
                           block_bottomk, bottomk_select)

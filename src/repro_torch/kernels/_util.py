@@ -118,6 +118,11 @@ _SIGNATURES = {
     "repro_servicecost_attrs": (_VP,),
     # s, pos, out, scratch, n, stream
     "repro_rankcount": (_VP,) * 4 + (_I, _VP),
+    # q, k, v, o, lse, B, Sq, Sk, H, KH, hd, q_offset, kv_end, causal,
+    # scale, stream
+    "repro_attn_fwd": (_VP,) * 5 + (_I,) * 9 + (_F, _VP),
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, then as repro_attn_fwd
+    "repro_attn_bwd": (_VP,) * 10 + (_I,) * 9 + (_F, _VP),
 }
 
 

@@ -9,8 +9,10 @@ Port of ``repro/models/layers.py``. Conventions:
     mesh axes);
   * attention is chunked online softmax with a hand-written backward
     (``torch.autograd.Function``) that saves only (out, lse) and
-    recomputes the score tiles chunk by chunk, in the reference's
-    arithmetic: fp32 scores, fp32 accumulation;
+    recomputes the score tiles, in the reference's arithmetic: fp32
+    scores, fp32 accumulation; on the card as the fused kernels of K7
+    (``kernels/attention.py``), elsewhere as K7's plain loop, chunk by
+    chunk;
   * the cross-entropy is taken chunk by chunk over the sequence, each
     chunk recomputed in backward, so the full [B, S, V] logits never
     exist at once;
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import attention as KA
 from repro_torch.telemetry import spans
 
 _NEG = -1e30
@@ -147,143 +150,26 @@ def rope(x, positions, theta: float):
 # chunked online-softmax attention with a recomputing backward
 # ---------------------------------------------------------------------------
 
-def _chunk_positions(Sq, Sk, Cq, Ck, q_offset, kv_valid_len):
-    """Per q chunk and kv chunk the positions (host lists), with -1 for
-    kv positions past ``kv_valid_len``."""
-    qpos = [list(range(q_offset + i * Cq, q_offset + (i + 1) * Cq))
-            for i in range(Sq // Cq)]
-    kpos = [[p if kv_valid_len is None or p < kv_valid_len else -1
-             for p in range(j * Ck, (j + 1) * Ck)] for j in range(Sk // Ck)]
-    return qpos, kpos
-
-
-def _visible(qp, kp, causal: bool) -> bool:
-    """False when every score of the (q chunk, kv chunk) tile is masked:
-    such a tile adds exactly nothing (p = 0, correction 1), so skipping it
-    leaves every bit of the result as it is."""
-    valid = [p for p in kp if p >= 0]
-    if not valid:
-        return False
-    return not causal or min(valid) <= max(qp)
-
-
-def _mask(qp, kp, causal: bool, device):
-    """The tile's [1, Cq, 1, 1, Ck] mask, made on the device from the
-    chunks' first positions (a host list copied over would stall the
-    stream at every tile)."""
-    q = torch.arange(qp[0], qp[0] + len(qp), device=device)
-    k = torch.arange(kp[0], kp[0] + len(kp), device=device)
-    nvalid = sum(p >= 0 for p in kp)
-    if nvalid < len(kp):                 # positions past kv_valid_len
-        k = torch.where(k < kp[0] + nvalid, k, -1)
-    if causal:
-        m = (q[:, None] >= k[None, :]) & (k >= 0)[None, :]
-    else:
-        m = ((k >= 0)[None, :]).expand(q.shape[0], k.shape[0])
-    return m[None, :, None, None, :]
-
-
-def _flash_forward(q, k, v, causal, Cq, Ck, qpos, kpos):
-    """-> (out [B, Sq, H, hd] in q's dtype, lse [B, nq, Cq, K, G])."""
-    B, Sq, H, hd = q.shape
-    Sk, K = k.shape[1], k.shape[2]
-    G = H // K
-    nq, nk = Sq // Cq, Sk // Ck
-    scale = 1.0 / math.sqrt(hd)
-    qr = q.reshape(B, nq, Cq, K, G, hd)
-    kr = k.reshape(B, nk, Ck, K, hd)
-    vr = v.reshape(B, nk, Ck, K, hd)
-    outs, lses = [], []
-    for i in range(nq):
-        qc = qr[:, i].to(torch.float32)
-        m = torch.full((B, Cq, K, G), _NEG, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, Cq, K, G), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, Cq, K, G, hd), dtype=torch.float32,
-                          device=q.device)
-        for j in range(nk):
-            if not _visible(qpos[i], kpos[j], causal):
-                continue
-            kc, vc = kr[:, j], vr[:, j]
-            s = torch.einsum("bqkgh,bckh->bqkgc", qc,
-                             kc.to(torch.float32)) * scale
-            s = torch.where(_mask(qpos[i], kpos[j], causal, q.device), s,
-                            _NEG)
-            m_new = torch.maximum(m, torch.amax(s, dim=-1))
-            m_safe = torch.clamp_min(m_new, -0.5 * 1e30)
-            p = torch.exp(s - m_safe[..., None])
-            corr = torch.exp(torch.clamp_min(m, -0.5 * 1e30) - m_safe)
-            l = l * corr + torch.sum(p, dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bqkgc,bckh->bqkgh", p.to(vc.dtype).to(torch.float32),
-                vc.to(torch.float32))
-            m = m_new
-        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
-        lses.append(torch.clamp_min(m, -0.5 * 1e30)
-                    + torch.log(torch.clamp_min(l, 1e-30)))
-    out = torch.stack(outs, dim=1).reshape(B, Sq, H, hd).to(q.dtype)
-    return out, torch.stack(lses, dim=1)
-
-
-def _flash_backward(q, k, v, o, lse, do, causal, Cq, Ck, qpos, kpos):
-    B, Sq, H, hd = q.shape
-    Sk, K = k.shape[1], k.shape[2]
-    G = H // K
-    nq, nk = Sq // Cq, Sk // Ck
-    scale = 1.0 / math.sqrt(hd)
-    f32 = torch.float32
-    qr = q.reshape(B, nq, Cq, K, G, hd).to(f32)
-    dor = do.reshape(B, nq, Cq, K, G, hd).to(f32)
-    orr = o.reshape(B, nq, Cq, K, G, hd).to(f32)
-    delta = torch.sum(dor * orr, dim=-1)                 # [B,nq,Cq,K,G]
-    kr = k.reshape(B, nk, Ck, K, hd).to(f32)
-    vr = v.reshape(B, nk, Ck, K, hd).to(f32)
-    dq = torch.zeros((B, nq, Cq, K, G, hd), dtype=f32, device=q.device)
-    dks, dvs = [], []
-    for j in range(nk):
-        kc, vc = kr[:, j], vr[:, j]
-        dk_j = torch.zeros((B, Ck, K, hd), dtype=f32, device=q.device)
-        dv_j = torch.zeros((B, Ck, K, hd), dtype=f32, device=q.device)
-        for i in range(nq):
-            if not _visible(qpos[i], kpos[j], causal):
-                continue
-            qc, doc = qr[:, i], dor[:, i]
-            s = torch.einsum("bqkgh,bckh->bqkgc", qc, kc) * scale
-            s = torch.where(_mask(qpos[i], kpos[j], causal, q.device), s,
-                            _NEG)
-            p = torch.exp(s - lse[:, i][..., None])      # [B,Cq,K,G,Ck]
-            dv_j = dv_j + torch.einsum("bqkgc,bqkgh->bckh", p, doc)
-            dp = torch.einsum("bqkgh,bckh->bqkgc", doc, vc)
-            ds = p * (dp - delta[:, i][..., None]) * scale
-            dk_j = dk_j + torch.einsum("bqkgc,bqkgh->bckh", ds, qc)
-            dq[:, i] = dq[:, i] + torch.einsum("bqkgc,bckh->bqkgh", ds, kc)
-        dks.append(dk_j)
-        dvs.append(dv_j)
-    dq = dq.reshape(B, Sq, H, hd).to(q.dtype)
-    dk = torch.stack(dks, dim=1).reshape(B, Sk, K, hd).to(k.dtype)
-    dv = torch.stack(dvs, dim=1).reshape(B, Sk, K, hd).to(v.dtype)
-    return dq, dk, dv
-
-
 class _FlashAttention(torch.autograd.Function):
     """Forward saves (q, k, v, out, lse); backward recomputes each score
-    tile from them (never an [S, S] tensor at once)."""
+    tile from them (never an [S, S] tensor at once). CUDA tensors run K7
+    (``kernels/attention.py``), others its plain loop."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, Cq, Ck, q_offset, kv_valid_len):
-        qpos, kpos = _chunk_positions(q.shape[1], k.shape[1], Cq, Ck,
-                                      q_offset, kv_valid_len)
         with spans.span("attn", q):
-            out, lse = _flash_forward(q, k, v, causal, Cq, Ck, qpos, kpos)
+            out, lse = KA.attention_forward(q, k, v, causal, Cq, Ck,
+                                            q_offset, kv_valid_len)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.plan = (causal, Cq, Ck, qpos, kpos)
+        ctx.plan = (causal, Cq, Ck, q_offset, kv_valid_len)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         with spans.span("attn", do):
-            dq, dk, dv = _flash_backward(q, k, v, out, lse, do, *ctx.plan)
+            dq, dk, dv = KA.attention_backward(q, k, v, out, lse, do,
+                                               *ctx.plan)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -22,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.kernels as K                               # noqa: E402
+from repro_torch.kernels import attention as KA              # noqa: E402
 from repro_torch.kernels import blockselect as kbs            # noqa: E402
 from repro_torch.kernels import compact as kc                 # noqa: E402
 from repro_torch.kernels import seeds as ks                   # noqa: E402
@@ -54,6 +55,13 @@ def assert_ulp(a, b, bound: int, what: str):
     d = (a[fin].view(torch.int32).to(torch.int64)
          - b[fin].view(torch.int32).to(torch.int64)).abs()
     assert int(d.max().item() if d.numel() else 0) <= bound, what
+
+
+def _plain_attention(patch):
+    """Attention's plain loop on every device, for an fp32 model on the
+    card (the attention kernel takes bf16 alone)."""
+    patch.setattr(KA, "attention_forward", KA.attention_forward_plain)
+    patch.setattr(KA, "attention_backward", KA.attention_backward_plain)
 
 
 def _on(dev, *arrays):
@@ -658,7 +666,7 @@ def test_full_width_train_step(cuda):
 # ------------------------------------------------------ MoE and decode
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
                                   "qwen2-moe-a2.7b"])
-def test_moe_and_decode_on_card_match_cpu(cuda, arch):
+def test_moe_and_decode_on_card_match_cpu(cuda, arch, monkeypatch):
     """A MoE smoke config on the card against the same calls on the CPU
     (qwen2-moe: shared experts, QKV bias, 60 experts): on an exact router
     (integer activations and router weights) the routing (top-k, slots,
@@ -691,6 +699,7 @@ def test_moe_and_decode_on_card_match_cpu(cuda, arch):
         assert gap <= rel * float(oa.float().abs().max()), (dt, gap)
     old = Mod.ACT_DTYPE
     Mod.ACT_DTYPE = torch.float32
+    _plain_attention(monkeypatch)
     try:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))
                                 .astype(np.int32))
@@ -716,7 +725,7 @@ def test_moe_and_decode_on_card_match_cpu(cuda, arch):
 
 # ---------------------------------------------------- SSM and hybrid
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
-def test_ssm_families_on_card_match_cpu(cuda, arch):
+def test_ssm_families_on_card_match_cpu(cuda, arch, monkeypatch):
     """The smoke configs of the ssm (Mamba-1) and hybrid (Mamba-2 + the
     shared attention block) families on the card against the same calls
     on the CPU, with TF32 off: the forward logits, prefill and 8 serve
@@ -749,6 +758,10 @@ def test_ssm_families_on_card_match_cpu(cuda, arch):
     try:
         for dt, rel in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
             Mod.ACT_DTYPE = dt
+            if dt == torch.float32:
+                _plain_attention(monkeypatch)
+            else:
+                monkeypatch.undo()
             out = {}
             for dev in ("cpu", cuda):
                 p = params if dev == "cpu" else on(params)
