@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 0. the card's name and power limit (nvidia-smi), then the nvcc build of the
-   six CUDA kernels (K2 in two routes) from ``src/repro_torch/kernels/csrc``;
+   CUDA kernels (K2 in two routes) from ``src/repro_torch/kernels/csrc``;
 1. each kernel against its plain PyTorch version on the card, at the main
    path's shapes (K1-K4: the 8-objective smoke spec, k = 1024 each,
    capacity 8201; K2's global route (select.cu) bit for bit at
@@ -270,10 +270,19 @@ Phases (any failure exits non-zero; nothing is caught):
    backward's
    times beside the reference's products at the bf16 peak, the plain
    loop's and scaled_dot_product_attention's (a yardstick the port never
-   calls); a granite-moe train step (24 layers, 2 microbatches, 4 x 256)
-   under a profiler counting 144 ``attn.kernel`` and as many launches.
-   (The fp32 checks of phases 8-11 run attention's plain loop: the kernel
-   takes bf16 alone; 11f runs it in bf16.)
+   calls). (The fp32 checks of phases 8-11 run attention's plain loop: the
+   kernel takes bf16 alone; 11f runs it in bf16.)
+15. K8, the MoE's slot count (``kernels/moe_slots.py``): the kernel
+   against its plain version, bit for bit, and the same bits run to run,
+   on every ``SLOT_CASES`` row (granite-moe's [4, 32,768] at E 32, C
+   1,280; qwen2-moe's E 60 and its padded 64 at top-4; decode at S = 1;
+   one row; a row that is no multiple of its tile; every choice to one
+   expert; E 128; a row of 64 of the largest tiles); at granite's shape
+   its time, warm and with a cold L2, beside its byte bound, the plain
+   one-hot cumsum's and a stable torch.sort of the row's (a yardstick the
+   port never calls); then a granite-moe train step (24 layers, 2
+   microbatches, 4 x 256) under a profiler counting 144 ``attn.kernel``
+   and 96 ``moe.slots_kernel``, each as many as its wrapper's launches.
 
 Prints the card line, a ``{"kernels": [...]}`` line (launch counts of K1-K4
 from phase 2, of K5 from phase 4 and of K6 from phase 5, errors and times
@@ -298,7 +307,8 @@ times at 11b's largest block; every row's ``placement_ssm_launches`` are
 block; every row's ``examples_launches`` are phase 13's, summed over the
 twins and the demo's 8 ranks. K7's row (``attention``) is phase 14's,
 its ``hybrid_train_launches`` 9d's a step, its ``placement_launches``
-11f's summed over its 2 ranks.
+11f's summed over its 2 ranks; K8's row (``moe_slots``) is phase 15's;
+both rows' ``step_launches`` are 15's granite step.
 """
 from __future__ import annotations
 
@@ -4509,19 +4519,20 @@ def phase_attention(torch, dev):
                          for key in ("tile", "over_ulp")}
                  for fault, fg in faults.items()}
     del q, k, v, do, o, lse, op, lp, qt, kt, vt, qg, kg, vg, lo, dot
-    step_calls = attn_step_calls(torch, dev, KA)
     return dict(ms=t_fwd, bwd_ms=t_bwd, bound_ms=b_fwd, bwd_bound_ms=b_bwd,
                 bound_by="operations", plain_ms=p_fwd, plain_bwd_ms=p_bwd,
-                library_ms=l_fwd, library_bwd_ms=l_bwd,
-                step_launches=step_calls, worst_gaps=worst,
+                library_ms=l_fwd, library_bwd_ms=l_bwd, worst_gaps=worst,
                 planted_faults=fault_max)
 
 
-def attn_step_calls(torch, dev, KA) -> int:
-    """The ``attn.kernel`` count of one granite-moe train step (24 layers,
-    2 microbatches of 2 x 256 tokens) under a profiler, checked against
-    ATTN_STEP_CALLS and the wrapper's own launch count."""
+def granite_step_counts(torch, dev) -> dict:
+    """The ``attn.kernel`` and ``moe.slots_kernel`` counts of one
+    granite-moe train step (24 layers, 2 microbatches of 2 x 256 tokens)
+    under a profiler, each checked against its expected count
+    (ATTN_STEP_CALLS, SLOT_STEP_CALLS) and its wrapper's launch count."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import attention as KA
+    from repro_torch.kernels import moe_slots as KS
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import init_model
@@ -4535,22 +4546,102 @@ def attn_step_calls(torch, dev, KA) -> int:
     del params
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         1, cfg.vocab_size, (4, 256)).astype(np.int32)).to(dev)
-    KA.launch.launches = 0
+    KA.launch.launches = KS.expert_slots.launches = 0
     spans.reset()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
         state, _ = step(state, {"tokens": toks})
         torch.cuda.synchronize()
-    counted = sum(int(c.value) for c in spans.counts()
-                  if c.name == "attn.kernel")
+    counted = {name: sum(int(c.value) for c in spans.counts()
+                         if c.name == name)
+               for name in ("attn.kernel", "moe.slots_kernel")}
     spans.reset()
-    _check(counted == ATTN_STEP_CALLS == KA.launch.launches,
-           f"K7: {counted} attn.kernel counts and {KA.launch.launches} "
-           f"launches "
-           f"in a granite step, expected {ATTN_STEP_CALLS}")
+    for name, want, launches in (
+            ("attn.kernel", ATTN_STEP_CALLS, KA.launch.launches),
+            ("moe.slots_kernel", SLOT_STEP_CALLS,
+             KS.expert_slots.launches)):
+        _check(counted[name] == want == launches,
+               f"{counted[name]} {name} counts and {launches} launches in "
+               f"a granite step, expected {want}")
     del state
     torch.cuda.empty_cache()
     return counted
+
+
+# K8's cases (name, B, S, k, E, C, choices): "routed" gives each token k
+# distinct experts of E at random, as the router does; "one" sends every
+# choice to expert 0 (all but C overflow); "padded" routes among the first
+# 60 of E = 64 (the padded experts are never chosen). granite-moe's
+# microbatch first (C = moe_capacity(4,096)), then qwen2-moe's E 60 and its
+# padded 64 at top-4, decode at S = 1, one row, a row of 8,008 (not a
+# multiple of its tile of 256), E 128, and a row long enough for the
+# largest tile (8,192 choices, 64 tiles).
+SLOT_CASES = (
+    ("granite", 4, 4096, 8, 32, 1280, "routed"),
+    ("qwen2-moe", 2, 4096, 4, 60, 344, "routed"),
+    ("qwen2-moe-padded", 2, 4096, 4, 64, 320, "padded"),
+    ("decode", 8, 1, 8, 32, 8, "routed"),
+    ("one-row", 1, 4096, 8, 32, 1280, "routed"),
+    ("ragged", 3, 1001, 8, 32, 320, "routed"),
+    ("one-expert", 4, 4096, 8, 32, 1280, "one"),
+    ("e128", 2, 2048, 8, 128, 160, "routed"),
+    ("long-row", 1, 65536, 8, 32, 20480, "routed"),
+)
+SLOT_STEP_CALLS = 24 * 2 * 2    # granite: layers x microbatches x (fwd,
+                                # remat's recompute)
+
+
+def slot_inputs(torch, dev, case, seed: int):
+    """flat_e [B, S*k] int64 of a SLOT_CASES row, made on the card."""
+    _, B, S, k, E, _, choices = case
+    if choices == "one":
+        return torch.zeros((B, S * k), dtype=torch.int64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    real = 60 if choices == "padded" else E
+    draw = torch.rand((B, S, real), generator=g, device=dev)
+    return draw.argsort(dim=-1)[..., :k].reshape(B, S * k).contiguous()
+
+
+def phase_moe_slots(torch, dev):
+    """K8 against its plain version on every SLOT_CASES row, bit for bit,
+    and its bits run to run; then at granite's shape the kernel's time
+    (warm, and with a cold L2) beside its byte bound, the plain one-hot
+    cumsum's and a stable torch.sort of the row's (a yardstick the port
+    never calls)."""
+    from repro_torch.kernels import moe_slots as KS
+    for n, case in enumerate(SLOT_CASES):
+        _, B, S, k, E, C, _ = case
+        flat_e = slot_inputs(torch, dev, case, 200 + n)
+        got = KS.expert_slots_kernel(flat_e, E, C)
+        again = KS.expert_slots_kernel(flat_e, E, C)
+        want = KS.expert_slots_plain(flat_e, E, C)
+        torch.cuda.synchronize()
+        for name, a, c, w in zip(("slot", "keep", "dest"), got, again, want):
+            _check(a.dtype == w.dtype and torch.equal(a, w),
+                   f"K8 {case}: {name} differs from the plain version")
+            _check(torch.equal(a, c), f"K8 {case}: {name} not run-to-run "
+                   "identical")
+        print(f"K8 case {case}: equal to plain, tile "
+              f"{KS.slot_tile(S * k)}, kept {int(got[1].sum())} of "
+              f"{got[1].numel()}", flush=True)
+    _, B, S, k, E, C, _ = case = SLOT_CASES[0]
+    flat_e = slot_inputs(torch, dev, case, 7)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    t_k = cuda_ms(torch, lambda: KS.expert_slots_kernel(flat_e, E, C))
+    t_cold = cuda_ms_cold(torch, lambda: KS.expert_slots_kernel(flat_e, E, C),
+                          flush)
+    t_plain = cuda_ms(torch, lambda: KS.expert_slots_plain(flat_e, E, C),
+                      reps=5, inner=2)
+    t_lib = cuda_ms(torch, lambda: torch.sort(flat_e, dim=1, stable=True))
+    nbytes = flat_e.numel() * (8 + 8 + 1 + 8)   # read ids; slot, keep, dest
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"K8 moe_slots [{B}, {S * k}] E {E} C {C}: kernel {t_k:.4f} ms "
+          f"(cold L2 {t_cold:.4f}), bound {b_ms:.4f} ms (bytes, "
+          f"{nbytes / 1e6:.2f} MB), plain one-hot cumsum {t_plain:.3f} ms, "
+          f"stable torch.sort of the row {t_lib:.4f} ms", flush=True)
+    del flat_e, flush
+    return dict(ms=t_k, cold_ms=t_cold, bound_ms=b_ms, bound_by="bytes",
+                plain_ms=t_plain, library_ms=t_lib)
 
 
 def main() -> int:
@@ -4622,6 +4713,9 @@ def main() -> int:
     done("13")
     attn_stats = phase_attention(torch, dev)
     done("14")
+    slot_stats = phase_moe_slots(torch, dev)
+    step_counts = granite_step_counts(torch, dev)
+    done("15")
 
     sources = {"seeds": ("seeds.cu", "seeds.py:58"),
                "blockselect": ("select.cu", "blockselect.py:41"),
@@ -4656,8 +4750,14 @@ def main() -> int:
                  "source": "src/repro_torch/kernels/csrc/attention.cu",
                  "replaces": "none (src/repro/models/layers.py _make_flash "
                              "is plain JAX)", **attn_stats,
+                 "step_launches": step_counts["attn.kernel"],
                  "hybrid_train_launches": hybrid_attn,
                  "placement_launches": attn_place})
+    rows.append({"name": "moe_slots", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/moe_slots.cu",
+                 "replaces": "none (src/repro/models/moe.py's slot "
+                             "assignment is plain JAX)", **slot_stats,
+                 "step_launches": step_counts["moe.slots_kernel"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

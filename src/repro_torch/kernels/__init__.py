@@ -15,6 +15,9 @@ K7 ``attention``    attention_forward/_backward (none: the reference's
                     attention is plain JAX; its forward and backward
                     launches counted together in
                     ``attention.launch.launches``, apart from K1-K6's)
+K8 ``moe_slots``    expert_slots (none: the reference's MoE slot count is
+                    plain JAX; counted in ``expert_slots.launches``, apart
+                    from K1-K6's)
 """
 from .blockselect import (batched_block_bottomk, batched_bottomk_select,
                           block_bottomk, bottomk_select)

@@ -123,6 +123,8 @@ _SIGNATURES = {
     "repro_attn_fwd": (_VP,) * 5 + (_I,) * 9 + (_F, _VP),
     # q, k, v, o, dout, lse, delta, dq, dk, dv, then as repro_attn_fwd
     "repro_attn_bwd": (_VP,) * 10 + (_I,) * 9 + (_F, _VP),
+    # flat_e, counts (or NULL), slot, keep, dest, B, n, E, C, tile, stream
+    "repro_moe_slots": (_VP,) * 5 + (_I,) * 5 + (_VP,),
 }
 
 

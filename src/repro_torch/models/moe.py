@@ -3,8 +3,9 @@
 Port of ``repro/models/moe.py``. Dispatch is capacity-based scatter/gather
 (GShard-style semantics) without a [T, E, C] one-hot dispatch product:
 each token's top-k choices take slots from a per-row running count of
-expert choices, and tokens move to [B, E*C, D] expert buffers and back by
-index. Routing is the reference's to the bit:
+expert choices (``kernels/moe_slots.py``: K8 on the card), and tokens
+move to [B, E*C, D] expert buffers and back by index. Routing is the
+reference's to the bit:
 
   * top-k breaks ties lowest expert index first, as ``lax.top_k`` does
     (a stable descending sort; ``torch.topk`` promises no tie order, and
@@ -26,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.moe_slots import expert_slots
 from repro_torch.telemetry import spans
 
 from .layers import Init, apply_mlp, dense_init, init_mlp
@@ -83,12 +85,8 @@ def route(p, x, cfg) -> Routing:
     topv, topi = srt.values[..., :k], srt.indices[..., :k]
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     # slots: the running count of earlier choices of the same expert over
-    # the row's flattened (S*k) choices
-    flat_e = topi.reshape(B, S * k)
-    pos = torch.cumsum(F.one_hot(flat_e, E), dim=1) - 1        # [B,S*k,E]
-    slot = torch.gather(pos, -1, flat_e[..., None])[..., 0]
-    keep = slot < C
-    dest = torch.where(keep, flat_e * C + slot, E * C)         # E*C: drop
+    # the row's flattened (S*k) choices (K8 on the card)
+    slot, keep, dest = expert_slots(topi.reshape(B, S * k), E, C)
     return Routing(logits, gates, topv, topi, slot, keep, dest)
 
 

@@ -44,6 +44,7 @@ from repro.optim import adamw as RA
 from repro_torch import interop, tree as TT
 from repro_torch.configs import registry as TR
 from repro_torch.distopt import compression as TC
+from repro_torch.kernels import moe_slots as KS
 from repro_torch.launch import mesh as TMe
 from repro_torch.launch import sharding as TSh
 from repro_torch.launch import steps as TSt
@@ -96,12 +97,19 @@ def _ref_routing(p, x, rcfg):
     gates = jax.nn.softmax(logits, axis=-1)
     topv, topi = jax.lax.top_k(gates, k)
     topv = topv / jnp.maximum(topv.sum(-1, keepdims=True), 1e-9)
-    flat_e = topi.reshape(B, S * k)
+    slot, keep, dest = _ref_slots(topi.reshape(B, S * k), E, C)
+    return (np.asarray(topv), np.asarray(topi), slot, keep, dest)
+
+
+def _ref_slots(flat_e, E, C):
+    """The reference's slot assignment (``repro.models.moe.apply_moe``)
+    of flat_e [B, n]: (slot, keep, dest) as numpy."""
+    flat_e = jnp.asarray(flat_e)
     pos = jnp.cumsum(jax.nn.one_hot(flat_e, E, dtype=jnp.int32), axis=1) - 1
     slot = jnp.take_along_axis(pos, flat_e[..., None], axis=-1)[..., 0]
     keep = slot < C
     dest = jnp.where(keep, flat_e * C + slot, E * C)
-    return tuple(np.asarray(a) for a in (topv, topi, slot, keep, dest))
+    return tuple(np.asarray(a) for a in (slot, keep, dest))
 
 
 # --------------------------------------------------------- init and sizes
@@ -212,6 +220,138 @@ def test_padded_experts_take_no_tokens():
                              rcfg)
     tout, _ = TMOE.apply_moe(_t(p), torch.from_numpy(x), cfg)
     _gap_ok(tout, rout, 1e-5)
+
+
+# ------------------------------------------------ the slot count (K8)
+def _slot_input(kind, rng, B=3, n=1000):
+    """(flat_e [B, n] int64, E, C): "ties", 2 experts (every choice ties
+    with half the row); "overflow", every choice to expert 3 of 8; "padded",
+    the first 60 of 64 experts; "routed", 8 distinct experts of 32 a token;
+    each with a capacity that drops many choices."""
+    if kind == "ties":
+        return rng.integers(0, 2, (B, n)), 2, 200
+    if kind == "overflow":
+        return np.full((B, n), 3), 8, 40
+    if kind == "padded":
+        return rng.integers(0, 60, (B, n)), 64, 16
+    tok = np.argsort(rng.random((B, n // 8, 32)), axis=-1)[..., :8]
+    return tok.reshape(B, -1), 32, 24
+
+
+SLOT_KINDS = ["ties", "overflow", "padded", "routed"]
+
+
+@pytest.mark.parametrize("kind", SLOT_KINDS)
+def test_expert_slots_plain_matches_the_reference(kind):
+    flat_e, E, C = _slot_input(kind, np.random.default_rng(4))
+    got = KS.expert_slots_plain(torch.from_numpy(flat_e), E, C)
+    want = _ref_slots(flat_e, E, C)
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), w)
+    assert got[0].dtype == got[2].dtype == torch.int64
+    assert got[1].dtype == torch.bool
+    assert 0 < int(got[1].sum()) < got[1].numel()      # drops happen
+
+
+def _no_library():
+    raise AssertionError("the kernel library was asked for off the card")
+
+
+def test_expert_slots_on_meta_gives_shapes_without_a_launch(monkeypatch):
+    monkeypatch.setattr(KS, "kernel_lib", _no_library)
+    monkeypatch.setattr(KS.expert_slots, "launches", 0)
+    flat_e = torch.empty((4, 32_768), dtype=torch.int64, device="meta")
+    slot, keep, dest = KS.expert_slots(flat_e, 32, 1280)
+    for t, dt in ((slot, torch.int64), (keep, torch.bool),
+                  (dest, torch.int64)):
+        assert t.device.type == "meta" and t.dtype == dt
+        assert t.shape == (4, 32_768)
+    assert KS.expert_slots.launches == 0
+
+
+@pytest.mark.parametrize("kind", SLOT_KINDS)
+def test_expert_slots_on_the_cpu_takes_the_plain_version(monkeypatch,
+                                                         kind):
+    monkeypatch.setattr(KS, "kernel_lib", _no_library)
+    monkeypatch.setattr(KS.expert_slots, "launches", 0)
+    flat_e, E, C = _slot_input(kind, np.random.default_rng(5))
+    flat_e = torch.from_numpy(flat_e)
+    for a, w in zip(KS.expert_slots(flat_e, E, C),
+                    KS.expert_slots_plain(flat_e, E, C)):
+        assert torch.equal(a, w)
+    assert KS.expert_slots.launches == 0
+
+
+def test_route_on_the_cpu_launches_no_slot_kernel(monkeypatch):
+    monkeypatch.setattr(KS, "kernel_lib", _no_library)
+    monkeypatch.setattr(KS.expert_slots, "launches", 0)
+    _, cfg, p = _moe_params("granite-moe-1b-a400m")
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 16, cfg.d_model)).astype(np.float32))
+    r = TMOE.route(_t(p), x, cfg)
+    C = TMOE.moe_capacity(16, cfg)
+    for a, w in zip((r.slot, r.keep, r.dest), KS.expert_slots_plain(
+            r.topi.reshape(2, -1), cfg.num_experts, C)):
+        assert torch.equal(a, w)
+    assert KS.expert_slots.launches == 0
+
+
+def test_slot_kernel_refuses_what_it_cannot_take():
+    flat_e = torch.zeros((2, 64), dtype=torch.int64)
+    with pytest.raises(ValueError, match="experts"):
+        KS.expert_slots_kernel(flat_e, KS.MAX_EXPERTS + 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        KS.expert_slots_kernel(flat_e, 32, 8)
+    with pytest.raises(ValueError, match=r"\[B, n\]"):
+        KS.expert_slots_kernel(flat_e[0], 32, 8)
+
+
+@pytest.mark.parametrize("n", [1, 8, 256, 257, 8008, 32_768, 262_144,
+                               262_145, 1 << 20])
+def test_slot_tile_is_what_the_kernel_takes(n):
+    """A power of two from 256 (one block's 8 warps of 32) to 8,192 (32
+    choices a lane), and at most 32 tiles a row below that."""
+    tile = KS.slot_tile(n)
+    assert tile & (tile - 1) == 0 and 256 <= tile <= KS.MAX_TILE
+    assert -(-n // tile) <= KS.TILES_PER_ROW or tile == KS.MAX_TILE
+    assert tile == 256 or -(-n // (tile // 2)) > KS.TILES_PER_ROW
+
+
+def _kernel_layout_slots(flat_e, E, C):
+    """The slots as ``csrc/moe_slots.cu`` forms them, stated in numpy: per
+    tile of ``slot_tile(n)`` choices the row's earlier tiles' counts, per
+    warp of the block's 8 (TILE / 8 consecutive choices) the block's
+    earlier warps' counts, then the warp's running count and the lanes
+    below in each group of 32."""
+    B, n = flat_e.shape
+    tile = KS.slot_tile(n)
+    tiles, per_warp = -(-n // tile), tile // 8
+    pad = np.full((B, tiles * tile), -1)
+    pad[:, :n] = flat_e
+    g = pad.reshape(B, tiles, 8, per_warp // 32, 32)
+    onehot = (g[..., None] == np.arange(E)).astype(np.int64)
+    lanes = np.cumsum(onehot, axis=4) - onehot          # lanes below
+    chunk = onehot.sum(4, keepdims=True)
+    running = np.cumsum(chunk, axis=3) - chunk           # warp's earlier
+    warp = onehot.sum((3, 4), keepdims=True)
+    warps = np.cumsum(warp, axis=2) - warp               # block's earlier
+    tiles_ = warp.sum(2, keepdims=True)
+    earlier = np.cumsum(tiles_, axis=1) - tiles_         # row's earlier
+    ranks = lanes + running + warps + earlier
+    slot = np.take_along_axis(ranks, np.maximum(g, 0)[..., None],
+                              axis=-1)[..., 0].reshape(B, -1)[:, :n]
+    keep = slot < C
+    return slot, keep, np.where(keep, flat_e * C + slot, E * C)
+
+
+@pytest.mark.parametrize("n", [8, 300, 2048, 8008, 20_000])
+def test_kernel_layout_gives_the_plain_slots(n):
+    rng = np.random.default_rng(n)
+    flat_e = rng.integers(0, 6, (2, n))
+    got = _kernel_layout_slots(flat_e, 6, n // 8)
+    want = KS.expert_slots_plain(torch.from_numpy(flat_e), 6, n // 8)
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a, w.numpy())
 
 
 # ----------------------------------------------------- loss and gradients
