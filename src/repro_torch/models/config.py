@@ -58,11 +58,12 @@ class ModelConfig:
     loss_chunk: int = 1024      # seq-chunk for vocab-sharded CE loss
     remat: bool = True          # checkpoint each layer in the scan
     vocab_pad_multiple: int = 128  # pad embedding rows so vocab shards evenly
-    fsdp: bool = False          # also shard params/opt over the "data" axis
-                                # (ZeRO-3 via GSPMD; needed for >10B archs)
-    constrain_acts: bool = False  # pin activations to (batch=data, seq/model
-                                  # replicated) at layer boundaries — stops
-                                  # XLA flip-flopping layouts (see §Perf B)
+    fsdp: bool = False          # also place params and both moments in
+                                # blocks over "data"; each layer gathers its
+                                # blocks inside its (checkpointed) function
+    constrain_acts: bool = False  # check that a rank's q holds its equal
+                                  # block of the heads at model > 1
+                                  # (layers.shard_heads); no number changes
 
     def __post_init__(self):
         # a configuration read from JSON gives the ids as a list

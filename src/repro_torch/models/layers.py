@@ -323,13 +323,15 @@ def apply_attention(p, x, cfg, positions, cache=None, cache_index=None):
 
     cache: dict(k=[B,Smax,K,hd], v=[B,Smax,K,hd]); cache_index: the host
     int position of this step's token. The decode branch writes the step's
-    k/v into ``cache`` in place and returns it. Returns (out [B,S,D],
-    new_cache or None)."""
+    k/v into ``cache`` in place and returns it. Returns (out [B,S,D], the
+    {"k", "v"} attended over: the sequence's own (a prefill keeps them for
+    its cache), or the cache written)."""
     B, S, _ = x.shape
     q, k, v = project_qkv(p, x, cfg, positions)
     if cache is None:
         out = chunked_attention(q, k, v, causal=cfg.causal,
                                 chunk=cfg.attn_chunk, scale=attn_scale(cfg))
+        cache = {"k": k, "v": v}
     else:
         idx = int(cache_index)
         ck, cv = cache["k"], cache["v"]

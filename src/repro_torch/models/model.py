@@ -1,70 +1,59 @@
 """Model assembly for all six families.
 
-Port of ``repro/models/model.py``: the dense, MoE, ``ssm`` (Mamba-1),
-``hybrid`` (Mamba-2 with a shared attention block), ``encoder``
+Port of ``repro/models/model.py``: dense, MoE, ``ssm`` (Mamba-1),
+``hybrid`` (Mamba-2 with shared attention blocks), ``encoder``
 (bidirectional, over stub frame embeddings) and ``vlm`` (a decoder over
-``[patches | text]``, the patch embeddings a stub frontend) families:
+``[patches | text]``, the patches a stub frontend's embeddings):
   init_model(cfg, seed, device) -> (params, specs)  (specs: logical axes)
   loss_fn(params, cfg, batch)    -> (loss, metrics)  (training forward)
   forward_logits(params, cfg, batch) -> [B, S, V]   (small models / tests)
-  make_cache(cfg, batch, max_len) -> decode cache: {"k", "v"} [L,B,T,K,hd]
-      (dense, MoE, vlm); {"conv", "h"} per layer (ssm); {"mamba": {...},
-      "k", "v"} with k/v [n_groups, B, T, K, hd] (hybrid); an encoder
-      has no decode step and raises
-  grow_cache(cfg, cache, extra)  -> the cache with ``extra`` more slots
-  prefill(params, cfg, batch)    -> (last-position logits, cache); an
-      encoder's is its inference forward and gives the cache {}
+  prefill(params, cfg, batch)    -> (last-position logits, decode cache);
+      an encoder's is its inference forward, with the cache {}
   serve_step(params, cfg, tokens, cache, index) -> (logits [B, V], cache)
-  Model(cfg, params)             the same tree held as nn.Parameters
+  make_cache / grow_cache; Model(cfg, params): the tree as nn.Parameters
+
+The stack is described once: ``_plan(cfg)`` gives its stages in order,
+each a run of stacked layers of one kind (attention + MLP or MoE; Mamba;
+the JAX package's hybrid groups: ``attn_every`` Mamba-2 layers, then ONE
+attention + MLP block that every group shares, on the residual stream)
+or a call of a shared block of the published Zamba2 block (below).
+``_walk`` runs a plan in all three modes: training (each run a
+``cost.scan``, each layer or group recomputed in backward under
+``cfg.remat``; each call a checkpoint of its own), and a prefill or a
+decode step (each run a ``cost.loop``; the prefill keeps each layer's SSM
+state and k/v, the decode step writes them into the cache it is given,
+which it returns). The k/v cache has a slot per attention layer, group
+or call.
+
+The published Zamba2 block (``cfg.hybrid_ids``): with e the embedded
+tokens and h the residual stream, Mamba layer i computes h <- h +
+Mamba2(RMSNorm(h + t_i)), where t_i is 0 but before the j-th of
+``hybrid_ids``, where the shared block B_(j mod ``shared_blocks``) runs on
+u = RMSNorm_2d([h, e]): attention (q, k, v from u, 2d wide; RoPE; the
+softmax scale ``attn_scale``) projected to d, RMSNorm_d, then the gated
+MLP gelu(a) b whose [a, b] adds the call's own LoRA adapter (x A_j) B_j,
+with no residual inside the block; then t_i = its output times the
+call's own d x d projection. ``shared`` stacks the blocks' leaves
+[n_blocks, ...]; ``adapter`` and ``proj`` stack the calls'. It has no
+tensor-parallel form: a ``model`` axis over 1 raises.
 
 The parameter tree is the reference's: stacked ``[L, ...]`` layer leaves,
-``(d_in, d_out)`` weights, the same names; the hybrid's shared block is
-one unstacked ``shared`` subtree, applied after every ``attn_every``
-layers. The gradient exchange keys a
-leaf's coordinates by their position in the flattened stacked leaf and
-reseeds each leaf by its index in sorted-key order, and AdamW decays the
-leaves with ``ndim >= 2``: per-layer modules would change all three. The
-forward loops over the layer axis; ``cfg.remat`` recomputes each layer in
-backward (``torch.utils.checkpoint``).
+``(d_in, d_out)`` weights, the same names (the gradient exchange keys a
+leaf's coordinates by their place in the stacked leaf and AdamW decays
+the leaves with ``ndim >= 2``: per-layer modules would change both).
+Initialisation draws from a ``torch.Generator`` (parity with the
+reference goes through ``interop.model_params_from_arrays``).
+``ACT_DTYPE`` is read at call time (tests set float32). A vlm's cache
+holds the patches first: its text decodes from ``frontend_tokens +
+prompt length``. An encoder keeps ``emb.tok``, with a zero gradient.
 
-The published Zamba2 block (``cfg.hybrid_ids``; the JAX package has only
-the block above): with e the embedded tokens and h the residual stream,
-Mamba layer i computes h <- h + Mamba2(RMSNorm(h + t_i)), where t_i is 0
-but before the j-th of ``hybrid_ids``, where the shared block B_(j mod
-``shared_blocks``) runs on u = RMSNorm_2d([h, e]): attention (q, k, v
-from u, 2d wide; RoPE; the softmax scale ``attn_scale``) projected to d,
-RMSNorm_d, then the gated MLP gelu(a) b whose [a, b] adds the call's own
-LoRA adapter (x A_j) B_j, with no residual inside the block; then t_i =
-its output times the call's own d x d projection. ``shared`` stacks the
-blocks' leaves [n_blocks, ...]; ``adapter`` and ``proj`` stack the calls'
-[n_calls, ...]. Its decode cache holds k/v per call. It has no tensor-
-parallel form: a ``model`` axis over 1 raises.
-
-Initialisation draws from an explicit ``torch.Generator``; its bits differ
-from threefry's, so parity with the reference goes through
-``interop.model_params_from_arrays``.
-
-``ACT_DTYPE`` is read at call time; tests set it to float32, as the
-reference's do.
-
-``serve_step`` writes the step's k/v, conv states and h into the cache it
-is given and returns that same cache (the reference's serve step donates
-its cache); a caller that still needs the old cache clones it first. A
-vlm's cache holds the patches first, so its text decodes from index
-``frontend_tokens + prompt length``.
-
-An encoder's tree keeps the reference's token embedding ``emb.tok``,
-which its frames bypass: its gradient is zero.
-
-Placed params: ``loss_fn``, ``prefill`` and ``serve_step`` take ``sh``, a
-``parallel.Shards`` over the tree (this rank's blocks and their pspecs).
-Each layer gathers its ``data``-placed (FSDP) leaves inside its
-(checkpointed) function, and at a ``model`` axis > 1 the attention, MLP,
-MoE, Mamba blocks, embedding and loss run as sums of the ranks' parts
-(``models/parallel.py``). Without ``sh`` nothing changes. The decode cache
-is then this rank's block too (``cache_dim``: the per-layer dim of k/v on
-``model``; ``state_dims``: each Mamba state leaf's, as
-``sharding.cache_pspecs`` places them).
+Placed params (``sh``, a ``parallel.Shards``: this rank's blocks and their
+pspecs): each layer gathers its ``data``-placed (FSDP) leaves inside its
+(checkpointed) function, and at a ``model`` axis over 1 the attention,
+MLP, MoE, Mamba blocks, embedding and loss run as sums of the ranks'
+parts (``models/parallel.py``). The decode cache is then this rank's
+block too (``cache_dim``, ``state_dims``: the per-layer dims of k/v and of
+the Mamba states on ``model``, as ``sharding.cache_pspecs`` places them).
 """
 from __future__ import annotations
 
@@ -86,6 +75,9 @@ ACT_DTYPE = torch.bfloat16
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm")
 
+# the published block's per-call leaves
+_CALL_LEAVES = ("adapter", "proj")
+
 
 def check_family(cfg: ModelConfig):
     """Raise for a family name the model code does not know."""
@@ -94,8 +86,13 @@ def check_family(cfg: ModelConfig):
                          f"known: {FAMILIES}")
 
 
+def _decodes(cfg: ModelConfig) -> bool:
+    """False for an encoder, which has no decode step."""
+    return cfg.family != "encoder"
+
+
 def _check_decodes(cfg: ModelConfig):
-    if cfg.family == "encoder":
+    if not _decodes(cfg):
         raise ValueError(f"{cfg.name}: an encoder has no decode step")
 
 
@@ -160,7 +157,7 @@ def abstract_params(cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# forward (training) — full sequence
+# the blocks: each takes its state and gives its new state in all modes
 # ---------------------------------------------------------------------------
 
 def _tp(sh):
@@ -183,26 +180,41 @@ def _ffn(lp, h, cfg, sh=None):
     return L.apply_mlp(lp["mlp"], h, cfg), {}
 
 
-def _attend(lp, h, cfg, positions, sh=None):
+def _attend(lp, h, cfg, positions, sh, kv, index, keep, cache_dim):
+    """The attention block over h: (out, the whole sequence's (k, v) when
+    ``keep``, else None); a decode step against ``kv``, written in place."""
+    if kv is not None:
+        if _tp(sh):
+            return P.decode_attention(sh["attn"], lp["attn"], h, cfg,
+                                      positions, kv["k"], kv["v"], index,
+                                      cache_dim), None
+        return L.apply_attention(lp["attn"], h, cfg, positions, cache=kv,
+                                 cache_index=index)[0], None
     if _tp(sh):
-        return P.attention(sh["attn"], lp["attn"], h, cfg, positions)[0]
-    return L.apply_attention(lp["attn"], h, cfg, positions)[0]
+        return P.attention(sh["attn"], lp["attn"], h, cfg, positions,
+                           causal=cfg.causal if keep else None)
+    a, new = L.apply_attention(lp["attn"], h, cfg, positions)
+    return a, (new["k"], new["v"]) if keep else None
 
 
-def _transformer_layer(lp, x, cfg, positions, sh=None):
+def _transformer_layer(lp, x, cfg, positions, sh=None, kv=None, index=None,
+                       keep=False, cache_dim=None):
+    """An attention + MLP (or MoE) layer: (x, aux losses, k/v). Over the
+    whole sequence (``keep``: a prefill's, whose k and v it gives for the
+    cache, placed cut to this rank's block on per-layer dim ``cache_dim``),
+    or a decode step at ``index`` against ``kv``, its cache slot."""
     lp = _whole(lp, sh)
     h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    x = x + _attend(lp, h, cfg, positions, sh)
+    a, new = _attend(lp, h, cfg, positions, sh, kv, index, keep, cache_dim)
+    x = x + a
+    if kv is None and not keep:   # training frees it before the MLP
+        del a
+    if new is not None and _tp(sh) and cache_dim is not None:
+        new = [P.block(t, cache_dim, sh) for t in new]
     h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
     m, aux = _ffn(lp, h, cfg, sh)
-    return x + m, aux
-
-
-def _layer_params(params, n: int):
-    """The stacked layer tree -> one tree per layer. Each stacked leaf is
-    unbound once, so its gradient is stacked once."""
-    per = [(path, leaf.unbind(0)) for path, leaf in T.flatten(params)]
-    return [T.unflatten((path, ls[i]) for path, ls in per) for i in range(n)]
+    x = x + m
+    return x, aux, new and {n: t.to(ACT_DTYPE) for n, t in zip("kv", new)}
 
 
 def _mixer(h, p, cfg, state, return_state, sh, dims):
@@ -228,75 +240,19 @@ def _ssm_layer(lp, x, cfg, state=None, return_state=False, sh=None,
     return x + y, st
 
 
-def _ssm_group(lps, shared, x, cfg, positions, sh=None, shared_sh=None):
-    """One hybrid group: ``attn_every`` Mamba-2 layers, then the shared
-    attention + MLP block."""
-    for lp in lps:
-        x, _ = _ssm_layer(lp, x, cfg, sh=sh)
-    return _transformer_layer(shared, x, cfg, positions, shared_sh)[0]
-
-
-def _n_groups(cfg) -> int:
-    n = cfg.num_layers // cfg.attn_every
-    if n * cfg.attn_every != cfg.num_layers:
-        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
-                         f"into groups of attn_every = {cfg.attn_every}")
-    return n
-
-
-def _layer_shards(sh):
-    """(per-layer Shards of the stacked layers, Shards of the hybrid's
-    shared block), or (None, None) unplaced."""
-    if sh is None:
-        return None, None
-    return (sh["layers"].unstacked(),
-            sh["shared"] if "shared" in sh else None)
-
-
-def _check_published(cfg, sh):
-    if cfg.published_hybrid and _tp(sh):
-        raise ValueError(f"{cfg.name}: the published Zamba2 block has no "
-                         f"tensor-parallel form; its mesh needs model 1, "
-                         f"got {sh.m}")
-
-
-def _published_shards(sh):
-    """(per-layer, per-block, per-call Shards) of the published hybrid, or
-    Nones unplaced."""
-    if sh is None:
-        return None, None, None
-    calls = {"adapter": sh.specs["adapter"], "proj": sh.specs["proj"]}
-    return (sh["layers"].unstacked(), sh["shared"].unstacked(),
-            sh._like(calls).unstacked())
-
-
-def _calls(params):
-    """The per-call leaves of the published hybrid, stacked."""
-    return {"adapter": params["adapter"], "proj": params["proj"]}
-
-
 def _shared_call(x, e, leaves, cfg, positions, kv=None, index=None):
     """One call of a shared block (``leaves["block"]``) on RMSNorm([x, e]),
-    with no residual inside, then the call's adapter and projection
-    (``leaves["call"]``): (t [B, S, D], k, v). Full sequence (``kv`` None;
-    k and v for a prefill's cache) or one decode step against ``kv`` =
-    (k, v) of the call's cache, written in place."""
+    then the call's adapter and projection (``leaves["call"]``): (t [B, S,
+    D], the {"k", "v"} attended over: the sequence's own, or ``kv``, the
+    call's cache slot, in a decode step at ``index``)."""
     blk, call = leaves["block"], leaves["call"]
-    B, S, _ = x.shape
     u = L.apply_norm(blk["ln1"], torch.cat([x, e], dim=-1), cfg.norm_kind,
                      cfg.norm_eps)
-    if kv is None:
-        q, k, v = L.project_qkv(blk["attn"], u, cfg, positions)
-        a = L.chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
-                                scale=L.attn_scale(cfg))
-        a = a.reshape(B, S, -1) @ blk["attn"]["wo"].to(x.dtype)
-    else:
-        k, v = kv
-        a, _ = L.apply_attention(blk["attn"], u, cfg, positions,
-                                 cache={"k": k, "v": v}, cache_index=index)
+    a, kv = L.apply_attention(blk["attn"], u, cfg, positions, cache=kv,
+                              cache_index=index)
     h = L.apply_norm(blk["ln2"], a, cfg.norm_kind, cfg.norm_eps)
     m = L.apply_mlp(blk["mlp"], h, cfg, call["adapter"])
-    return m @ call["proj"]["w"].to(m.dtype), k, v
+    return m @ call["proj"]["w"].to(m.dtype), kv
 
 
 def _call_shared(blk, call, x, e, cfg, positions, bsh=None, csh=None,
@@ -307,67 +263,165 @@ def _call_shared(blk, call, x, e, cfg, positions, bsh=None, csh=None,
                     kv, index)
 
 
-def _published_stack(params, cfg, x, positions, sh=None):
-    """The published hybrid's layers (the module's docstring) over the
-    embedded tokens x: (hidden, aux losses). Under ``cfg.remat`` each
-    Mamba layer and each shared call is recomputed in backward; the runs
-    of Mamba layers between calls go through ``cost.scan``."""
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    e = x
-    nb = cfg.shared_blocks
-    layers = _layer_params(params["layers"], cfg.num_layers)
-    blocks = _layer_params(params["shared"], nb)
-    calls = _layer_params(_calls(params), len(cfg.hybrid_ids))
-    lsh, bsh, csh = _published_shards(sh)
-    run = (lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) \
-        if cfg.remat and torch.is_grad_enabled() else (lambda fn, *a: fn(*a))
+# ---------------------------------------------------------------------------
+# the stack: one plan, one walk
+# ---------------------------------------------------------------------------
 
-    def body(c, lp, _, call):
-        return (call(_ssm_layer, lp, c[0], cfg, None, False, lsh)[0],)
-    start = 0
-    for j, i in enumerate(cfg.hybrid_ids):
-        x = cost.scan(body, (x,), layers[start:i], remat=cfg.remat)[0]
+def _n_groups(cfg) -> int:
+    n = cfg.num_layers // cfg.attn_every
+    if n * cfg.attn_every != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
+                         f"into groups of attn_every = {cfg.attn_every}")
+    return n
+
+
+def _plan(cfg: ModelConfig, sh=None) -> list:
+    """The stages of ``cfg``'s stack in order, each (kind, a, b): "attn" /
+    "ssm" layers a..b-1; "group" groups a..b-1 (group g: Mamba-2 layers
+    g E..(g + 1) E - 1, then the shared block, k/v slot g); "call": shared
+    call a (k/v slot a), then Mamba layer b with its output. ``sh``: the
+    placement (the published block refuses a ``model`` axis)."""
+    if cfg.published_hybrid:
+        if _tp(sh):
+            raise ValueError(f"{cfg.name}: the published Zamba2 block has "
+                             f"no tensor-parallel form; its mesh needs model "
+                             f"1, got {sh.m}")
+        plan, start = [], 0
+        for j, i in enumerate(cfg.hybrid_ids):
+            plan += [("ssm", start, i)] if i > start else []
+            plan.append(("call", j, i))
+            start = i + 1
+        return plan + ([("ssm", start, cfg.num_layers)]
+                       if start < cfg.num_layers else [])
+    if cfg.family == "hybrid":
+        return [("group", 0, _n_groups(cfg))]
+    return [("ssm" if cfg.family == "ssm" else "attn", 0, cfg.num_layers)]
+
+
+def _layer_params(params, n: int):
+    """The stacked layer tree -> one tree per layer. Each stacked leaf is
+    unbound once, so its gradient is stacked once."""
+    per = [(path, leaf.unbind(0)) for path, leaf in T.flatten(params)]
+    return [T.unflatten((path, ls[i]) for path, ls in per) for i in range(n)]
+
+
+def _stage_shards(sh):
+    """(Shards of one stacked layer, of the shared block (one of the
+    published ones), of one published call), or Nones unplaced."""
+    if sh is None:
+        return None, None, None
+    if "adapter" not in sh:
+        return (sh["layers"].unstacked(),
+                sh["shared"] if "shared" in sh else None, None)
+    calls = sh._like({k: sh.specs[k] for k in _CALL_LEAVES}).unstacked()
+    return sh["layers"].unstacked(), sh["shared"].unstacked(), calls
+
+
+def _walk(params, cfg, h: list, positions, sh=None, cache=None, index=None,
+          keep=False, cache_dim=None, state_dims=None):
+    """Run ``_plan(cfg, sh)`` over the hidden state ``h[0]``, a one-element
+    list that the walk empties (so a prefill's prompt is freed once the
+    first layer's output replaces it): (hidden, aux losses) in training;
+    with ``keep``, a prefill, (hidden, (each Mamba layer's state, each
+    slot's {"k", "v"})); with ``cache``, one decode step at ``index``
+    written into it, (hidden, cache)."""
+    plan = _plan(cfg, sh)
+    train = cache is None and not keep
+    aux = ([torch.zeros((), dtype=torch.float32, device=h[0].device)] * 2
+           if train else [])
+    e = h[0] if any(kind == "call" for kind, _, _ in plan) else None
+    layers = _layer_params(params["layers"], cfg.num_layers)
+    if e is not None:
+        blocks = _layer_params(params["shared"], cfg.shared_blocks)
+        calls = _layer_params({k: params[k] for k in _CALL_LEAVES},
+                              len(cfg.hybrid_ids))
+    lsh, ssh, csh = _stage_shards(sh)
+    states = None if cache is None else cache.get("mamba", cache)
+    E = cfg.attn_every
+    once = (lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)) \
+        if cfg.remat and torch.is_grad_enabled() else (lambda fn, *a: fn(*a))
+    kept = ([], [])
+
+    def add(into, got):            # a prefill keeps states and k/v
+        if keep:
+            into[0].extend(got[0])
+            into[1].extend(got[1])
+
+    # an item of a run: (its params, x, its index (None in training), a
+    # group's shared block) -> (x, aux losses, its states and k/v if kept)
+    def attn(lp, x, i, _=None, sh=lsh):
+        kv = None if cache is None else {"k": cache["k"][i],
+                                         "v": cache["v"][i]}
+        x, a, kv = _transformer_layer(lp, x, cfg, positions, sh, kv, index,
+                                      keep, cache_dim)
+        return x, a, ([], [kv]) if keep else None
+
+    def ssm(lp, x, i, _=None, t=None):
+        state = None if states is None else {k: s[i] for k, s in
+                                             states.items()}
+        x, st = _ssm_layer(lp, x, cfg, state, keep, lsh, state_dims, t)
+        for k, s in (states or {}).items():
+            s[i].copy_(st[k])
+        return x, {}, ([st], []) if keep else None
+
+    def group(lps, x, g, shared):
+        got = ([], [])
+        for n, lp in enumerate(lps):
+            x, _, o = ssm(lp, x, None if g is None else g * E + n)
+            add(got, o)
+        x, _, o = attn(shared, x, g, None, ssh)
+        add(got, o)
+        return x, {}, got if keep else None
+
+    def run(kind, a, b):
+        fn = {"attn": attn, "ssm": ssm, "group": group}[kind]
+        xs = ([layers[g * E:(g + 1) * E] for g in range(a, b)]
+              if kind == "group" else layers[a:b])
+        shared = params["shared"] if kind == "group" else None
+        if train:          # the carry: (x, moe_aux, moe_z) or (x,)
+            def body(c, item, shared, call):
+                y, losses, _ = call(fn, item, c[0], None, shared)
+                return (y, *(s + losses.get(k, 0.0) for s, k in
+                             zip(c[1:], ("moe_aux", "moe_z"))))
+            carry = (h.pop(), *aux) if kind == "attn" else (h.pop(),)
+            x, *rest = cost.scan(body, carry, xs, shared, cfg.remat)
+            aux[:] = rest or aux
+        else:
+            def step(i, x):
+                x, _, got = fn(xs[i], x, a + i, shared)
+                return x, got
+            x, outs = cost.loop(b - a, step, h.pop())
+            for got in outs:
+                add(kept, got)
+        h.append(x)
+
+    def shared_call(j, i):
+        x = h.pop()
         spans.count("shared.calls", 1)
-        t = run(_call_shared, blocks[j % nb], calls[j], x, e, cfg,
-                positions, bsh, csh)[0]
-        x = run(_ssm_layer, layers[i], x, cfg, None, False, lsh, None, t)[0]
-        start = i + 1
-    x = cost.scan(body, (x,), layers[start:], remat=cfg.remat)[0]
-    return x, {"moe_aux": zero, "moe_z": zero}
+        kv = None if cache is None else {"k": cache["k"][j],
+                                         "v": cache["v"][j]}
+        t, kv = once(_call_shared, blocks[j % cfg.shared_blocks], calls[j],
+                     x, e, cfg, positions, ssh, csh, kv, index)
+        if keep:
+            kept[1].append({n: kv[n].to(ACT_DTYPE) for n in kv})
+        del kv
+        x, _, got = once(ssm, layers[i], x, i, None, t)
+        add(kept, got)
+        h.append(x)
+
+    for kind, a, b in plan:
+        if kind == "call":
+            shared_call(a, b)
+        else:
+            run(kind, a, b)
+    if train:
+        return h.pop(), {"moe_aux": aux[0], "moe_z": aux[1]}
+    return h.pop(), kept if keep else cache
 
 
 def _run_stack(params, cfg, x, positions, sh=None):
-    """Loop over the stacked layers; returns (hidden, aux_losses). Each
-    layer (a hybrid's group) is recomputed in backward under
-    ``cfg.remat``; the loop is ``cost.scan`` (trip-counted in a dry
-    run)."""
-    if cfg.published_hybrid:
-        _check_published(cfg, sh)
-        return _published_stack(params, cfg, x, positions, sh)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = _layer_params(params["layers"], cfg.num_layers)
-    lsh, ssh = _layer_shards(sh)
-    if cfg.family == "ssm":
-        def body(c, lp, _, call):
-            return (call(_ssm_layer, lp, c[0], cfg, None, False, lsh)[0],)
-        return cost.scan(body, (x,), layers, remat=cfg.remat)[0], \
-            {"moe_aux": zero, "moe_z": zero}
-    if cfg.family == "hybrid":
-        E = cfg.attn_every
-
-        def body(c, lps, shared, call):
-            return (call(_ssm_group, lps, shared, c[0], cfg, positions, lsh,
-                         ssh),)
-        groups = [layers[g * E:(g + 1) * E] for g in range(_n_groups(cfg))]
-        return cost.scan(body, (x,), groups, params["shared"],
-                         cfg.remat)[0], {"moe_aux": zero, "moe_z": zero}
-
-    def body(c, lp, _, call):
-        y, a = call(_transformer_layer, lp, c[0], cfg, positions, lsh)
-        return (y, c[1] + a.get("moe_aux", 0.0), c[2] + a.get("moe_z", 0.0))
-    x, moe_aux, moe_z = cost.scan(body, (x, zero, zero), layers,
-                                  remat=cfg.remat)
-    return x, {"moe_aux": moe_aux, "moe_z": moe_z}
+    """The training forward of the stack: (hidden, aux losses)."""
+    return _walk(params, cfg, [x], positions, sh)
 
 
 def _emb(params, sh):
@@ -474,11 +528,11 @@ def loss_fn(params, cfg: ModelConfig, batch, sh=None):
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
                device=None):
-    """The zeroed decode cache (``device="meta"``: shapes only): k/v [L,
-    batch, max_len, K, hd]; per-layer SSM states [L, batch, ...] (conv
-    states in ``dtype``, h in fp32, no time axis); the hybrid's SSM states
-    under "mamba" beside k/v [n_groups, batch, max_len, K, hd]. An
-    encoder has none and raises."""
+    """The zeroed decode cache (``device="meta"``: shapes only): k/v
+    [n, batch, max_len, K, hd], n the plan's attention layers, groups or
+    calls; per-layer SSM states [L, batch, ...] (conv states in ``dtype``,
+    h in fp32, no time axis), a hybrid's under "mamba". An encoder has
+    none and raises."""
     check_family(cfg)
     _check_decodes(cfg)
     dev = resolve_device(device)
@@ -489,14 +543,14 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=ACT_DTYPE,
                 for k, t in state.items()}
     if cfg.family == "ssm":
         return stacked(M.mamba1_state(cfg, batch, dtype, "meta"))
+    n = sum(1 if kind == "call" else b - a for kind, a, b in _plan(cfg)
+            if kind != "ssm")
     kv_shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    kv = lambda n: torch.zeros((n, *kv_shape), dtype=dtype, device=dev)
+    kv = lambda: torch.zeros((n, *kv_shape), dtype=dtype, device=dev)
     if cfg.family == "hybrid":
-        n = (len(cfg.hybrid_ids) if cfg.published_hybrid
-             else _n_groups(cfg))
         return {"mamba": stacked(M.mamba2_state(cfg, batch, dtype, "meta")),
-                "k": kv(n), "v": kv(n)}
-    return {"k": kv(Lr), "v": kv(Lr)}
+                "k": kv(), "v": kv()}
+    return {"k": kv(), "v": kv()}
 
 
 def grow_cache(cfg: ModelConfig, cache, extra: int):
@@ -515,36 +569,6 @@ def grow_cache(cfg: ModelConfig, cache, extra: int):
     return grown
 
 
-def _cached_block(lp, x, cfg, positions, ck, cv, index: int, sh=None,
-                  cache_dim=None):
-    """An attention + MLP block's decode step against the k/v cache of
-    one layer (or group), written in place."""
-    lp = _whole(lp, sh)
-    h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    if _tp(sh):
-        a = P.decode_attention(sh["attn"], lp["attn"], h, cfg, positions,
-                               ck, cv, index, cache_dim)
-    else:
-        a, _ = L.apply_attention(lp["attn"], h, cfg, positions,
-                                 cache={"k": ck, "v": cv}, cache_index=index)
-    x = x + a
-    h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + _ffn(lp, h, cfg, sh)[0]
-
-
-def _ssm_step(lp, x, cfg, states: dict, i: int, sh=None, dims=None,
-              t=None):
-    """Layer i's Mamba decode step (``t``: a shared call's output); its new
-    states are written into the stacked state leaves ``states`` in
-    place."""
-    x, new = _ssm_layer(lp, x, cfg, state={k: t[i] for k, t in
-                                            states.items()}, sh=sh,
-                        dims=dims, t=t)
-    for k, t in states.items():
-        t[i].copy_(new[k])
-    return x
-
-
 def _cache_len(cache, cache_dim, sh) -> int:
     """The k/v cache's global length (its time axis is per-layer dim 1)."""
     n = cache["k"].shape[2]
@@ -554,18 +578,14 @@ def _cache_len(cache, cache_dim, sh) -> int:
 @torch.no_grad()
 def serve_step(params, cfg: ModelConfig, tokens, cache, index: int,
                sh=None, cache_dim=None, state_dims=None):
-    """One decode step. tokens: [B] int; index: the host int position of
-    this token (the cache's current length). Placed (``sh``): this rank's
-    rows and blocks of the params and cache (``cache_dim``: the per-layer
-    k/v dim on ``model``, 1 for S, 2 for K, 3 for hd, None whole;
-    ``state_dims``: {Mamba state leaf: its per-layer dim on ``model`` or
-    None}).
-
-    Writes the step's k/v and SSM states into ``cache`` in place; returns
-    (logits [B, vocab_padded] fp32, cache). An index at or past the k/v
-    cache's length raises (the reference clamps it onto the last slot);
-    the ssm family has no time axis, so no index bound: a step costs the
-    same at any position. An encoder has no decode step and raises."""
+    """One decode step: (logits [B, vocab_padded] fp32, ``cache``, with
+    the step's k/v and SSM states written into it in place). tokens: [B]
+    int; index: the host int position of this token. Placed (``sh``):
+    this rank's rows and blocks of the params and cache (``cache_dim``:
+    the per-layer k/v dim on ``model``, 1 for S, 2 for K, 3 for hd, None
+    whole; ``state_dims``: {Mamba state leaf: its dim there or None}). An
+    index at or past the k/v cache's length raises (the reference clamps
+    it onto the last slot); SSM states have no time axis, so no bound."""
     check_family(cfg)
     _check_decodes(cfg)
     if "k" in cache and not 0 <= int(index) < _cache_len(cache, cache_dim,
@@ -577,154 +597,34 @@ def serve_step(params, cfg: ModelConfig, tokens, cache, index: int,
     x = _embed(params, tokens[:, None], sh)                       # [B,1,D]
     positions = torch.full((B, 1), int(index), dtype=torch.int32,
                            device=x.device)
-    if cfg.published_hybrid:
-        x, _ = _published_serve(params, cfg, x, positions, sh, state_dims,
-                                cache, index)
-        x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
-        return _logits_last(params, cfg, x[:, 0], sh), cache
-    layers = _layer_params(params["layers"], cfg.num_layers)
-    lsh, ssh = _layer_shards(sh)
-    if cfg.family == "ssm":
-        def step(i, x):
-            return _ssm_step(layers[i], x, cfg, cache, i, lsh,
-                             state_dims), None
-    elif cfg.family == "hybrid":
-        E = cfg.attn_every
-
-        def step(g, x):
-            for i in range(g * E, (g + 1) * E):
-                x = _ssm_step(layers[i], x, cfg, cache["mamba"], i, lsh,
-                              state_dims)
-            return _cached_block(params["shared"], x, cfg, positions,
-                                 cache["k"][g], cache["v"][g], index, ssh,
-                                 cache_dim), None
-    else:
-        def step(i, x):
-            return _cached_block(layers[i], x, cfg, positions, cache["k"][i],
-                                 cache["v"][i], index, lsh, cache_dim), None
-    n = _n_groups(cfg) if cfg.family == "hybrid" else cfg.num_layers
-    x, _ = cost.loop(n, step, x)
+    x, cache = _walk(params, cfg, [x], positions, sh, cache, index,
+                     cache_dim=cache_dim, state_dims=state_dims)
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
     return _logits_last(params, cfg, x[:, 0], sh), cache
 
 
-def _published_serve(params, cfg, x, positions, sh, state_dims, cache=None,
-                     index=None):
-    """The published hybrid's layers, without gradients, over the embedded
-    tokens x (also each shared call's e): a prefill (``cache`` None) or one
-    decode step at ``index`` against ``cache``, written in place. Returns
-    (hidden, the decode cache)."""
-    _check_published(cfg, sh)
-    e = x
-    nb = cfg.shared_blocks
-    layers = _layer_params(params["layers"], cfg.num_layers)
-    blocks = _layer_params(params["shared"], nb)
-    calls = _layer_params(_calls(params), len(cfg.hybrid_ids))
-    lsh, bsh, csh = _published_shards(sh)
-    at = {i: j for j, i in enumerate(cfg.hybrid_ids)}
-    states, ks, vs = [], [], []
-    for i, lp in enumerate(layers):
-        t = None
-        if i in at:
-            j = at[i]
-            kv = None if cache is None else (cache["k"][j], cache["v"][j])
-            t, k, v = _call_shared(blocks[j % nb], calls[j], x, e, cfg,
-                                   positions, bsh, csh, kv, index)
-            ks.append(k.to(ACT_DTYPE))
-            vs.append(v.to(ACT_DTYPE))
-        if cache is None:
-            x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh,
-                               dims=state_dims, t=t)
-            states.append(st)
-        else:
-            x = _ssm_step(lp, x, cfg, cache["mamba"], i, lsh, state_dims, t)
-    if cache is None:
-        cache = {"mamba": _stack_states(states), "k": torch.stack(ks),
-                 "v": torch.stack(vs)}
-    return x, cache
-
-
-def _prefill_block(lp, x, cfg, positions, causal: bool, sh=None,
-                   cache_dim=None):
-    """An attention + MLP block over the prompt: (x, k, v), k/v in
-    ACT_DTYPE for the cache (placed: this rank's block on ``cache_dim``)."""
-    B, S, _ = x.shape
-    lp = _whole(lp, sh)
-    h = L.apply_norm(lp["ln1"], x, cfg.norm_kind, cfg.norm_eps)
-    if _tp(sh):
-        a, (k, v) = P.attention(sh["attn"], lp["attn"], h, cfg, positions,
-                                causal=causal)
-        x = x + a
-        if cache_dim is not None:
-            k, v = (P.block(t, cache_dim, sh) for t in (k, v))
-    else:
-        q, k, v = L.project_qkv(lp["attn"], h, cfg, positions)
-        a = L.chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
-        x = x + a.reshape(B, S, -1) @ lp["attn"]["wo"].to(x.dtype)
-    h = L.apply_norm(lp["ln2"], x, cfg.norm_kind, cfg.norm_eps)
-    return x + _ffn(lp, h, cfg, sh)[0], k.to(ACT_DTYPE), v.to(ACT_DTYPE)
-
-
-def _stack_states(states: list) -> dict:
-    """Per-layer SSM state dicts -> one dict of stacked [L, ...] leaves."""
-    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+def _stack(trees: list) -> dict:
+    """Per-layer dicts of tensors -> one dict of stacked leaves."""
+    return {k: torch.stack([t[k] for t in trees])
+            for k in (trees[0] if trees else ())}
 
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, sh=None, cache_dim=None,
             state_dims=None):
-    """Forward the prompt and build the decode cache.
-
-    Returns (logits [B, Vp] for the last position, cache for serve_step at
-    max_len = S; an encoder has no decode step and gets no cache). Placed
-    (``sh``): this rank's rows of the batch, k/v cut to its block on
-    per-layer dim ``cache_dim`` and the Mamba states on ``state_dims``
-    (as ``serve_step``)."""
+    """Forward the prompt: (logits [B, Vp] at the last position, the
+    decode cache for serve_step at max_len = S; an encoder gets none).
+    Placed (``sh``): this rank's rows of the batch, and the cache its
+    blocks on ``cache_dim`` and ``state_dims`` (as ``serve_step``)."""
     x, positions, _, _ = _inputs_to_hidden(params, cfg, batch, sh)
-    if cfg.published_hybrid:
-        x, cache = _published_serve(params, cfg, x, positions, sh,
-                                    state_dims)
-        x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
-        return _logits_last(params, cfg, x[:, -1], sh), cache
-    # the loop holds the only reference to the embedded prompt, which is
-    # freed once the first layer's output replaces it
-    first = [x]
+    h = [x]
     del x
-    layers = _layer_params(params["layers"], cfg.num_layers)
-    lsh, ssh = _layer_shards(sh)
-    if cfg.family == "ssm":
-        def step(i, x):
-            return _ssm_layer(layers[i], x, cfg, return_state=True, sh=lsh,
-                              dims=state_dims)
-        x, states = cost.loop(cfg.num_layers, step, first.pop())
-        cache = _stack_states(states)
-    elif cfg.family == "hybrid":
-        E = cfg.attn_every
-
-        def step(g, x):
-            states = []
-            for lp in layers[g * E:(g + 1) * E]:
-                x, st = _ssm_layer(lp, x, cfg, return_state=True, sh=lsh,
-                                   dims=state_dims)
-                states.append(st)
-            # the reference's hybrid prefill runs the shared block causal
-            # with no QKV bias; the hybrid configs have none
-            x, k, v = _prefill_block(params["shared"], x, cfg, positions,
-                                     True, ssh, cache_dim)
-            return x, (states, k, v)
-        x, outs = cost.loop(_n_groups(cfg), step, first.pop())
-        cache = {"mamba": _stack_states([st for o in outs for st in o[0]]),
-                 "k": torch.stack([o[1] for o in outs]),
-                 "v": torch.stack([o[2] for o in outs])}
-    else:
-        def step(i, x):
-            x, k, v = _prefill_block(layers[i], x, cfg, positions,
-                                     cfg.causal, lsh, cache_dim)
-            return x, (k, v)
-        x, kv = cost.loop(cfg.num_layers, step, first.pop())
-        cache = ({} if cfg.family == "encoder"
-                 else {"k": torch.stack([k for k, _ in kv]),
-                       "v": torch.stack([v for _, v in kv])})
+    x, (states, kv) = _walk(params, cfg, h, positions, sh, keep=True,
+                            cache_dim=cache_dim, state_dims=state_dims)
+    cache = {}
+    if _decodes(cfg):            # laid out as make_cache lays it out
+        st, kvs = _stack(states), _stack(kv)
+        cache = {"mamba": st, **kvs} if st and kvs else st or kvs
     x = L.apply_norm(params["ln_f"], x, cfg.norm_kind, cfg.norm_eps)
     return _logits_last(params, cfg, x[:, -1], sh), cache
 

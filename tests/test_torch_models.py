@@ -33,6 +33,7 @@ from repro.models import model as RM
 from repro.optim import adamw as RA
 
 from repro_torch import interop, tree as TT
+from repro_torch.configs import registry as PR
 from repro_torch.configs import twins as TR
 from repro_torch.configs import shapes as TS
 from repro_torch.models import layers as TL
@@ -169,6 +170,51 @@ def test_interop_round_trip_is_exact():
     bad["ln_f"] = {"scale": np.ones(3, np.float32)}
     with pytest.raises(ValueError, match="shape"):
         interop.model_params_from_arrays(cfg, bad, device=CPU)
+
+
+# every configuration the port runs, and the JAX package's zamba2 block
+PLANNED = [(a, PR.get_config(a)) for a in PR.list_archs()] + [
+    ("zamba2-2.7b-twin", TR.get_config("zamba2-2.7b"))]
+
+
+@pytest.mark.parametrize("cfg", [c for _, c in PLANNED],
+                         ids=[a for a, _ in PLANNED])
+def test_plan_orders_each_stack_and_sizes_the_cache(cfg):
+    """``_plan`` at full size, on meta (nothing allocated): every layer
+    once and in order; the published zamba2 block's shared calls before
+    layers 6, 12, ..., 51, alternating over its two blocks; the twin's
+    one block after every 6th layer; one run in the other families; and
+    ``make_cache``'s k/v slots equal the plan's attention stages."""
+    plan = TM._plan(cfg)
+    E = cfg.attn_every
+    layers, slots = [], 0
+    for kind, a, b in plan:
+        if kind == "call":
+            layers.append(b)
+            slots += 1
+        elif kind == "group":
+            layers += range(a * E, b * E)
+            slots += b - a
+        else:
+            layers += range(a, b)
+            slots += (b - a) * (kind == "attn")
+    assert layers == list(range(cfg.num_layers))
+    if cfg.hybrid_ids:
+        calls = [(j, i) for kind, j, i in plan if kind == "call"]
+        assert [i for _, i in calls] == [6, 12, 18, 24, 30, 36, 42, 47, 51]
+        assert [j % cfg.shared_blocks for j, _ in calls] == [0, 1] * 4 + [0]
+        assert {kind for kind, _, _ in plan} == {"ssm", "call"}
+    elif cfg.family == "hybrid":
+        assert plan == [("group", 0, 9)] and E == 6
+    else:
+        kind = "ssm" if cfg.family == "ssm" else "attn"
+        assert plan == [(kind, 0, cfg.num_layers)]
+    if cfg.family == "encoder":
+        with pytest.raises(ValueError, match="no decode step"):
+            TM.make_cache(cfg, 1, 8, device="meta")
+    else:
+        cache = TM.make_cache(cfg, 1, 8, device="meta")
+        assert (cache["k"].shape[0] if "k" in cache else 0) == slots
 
 
 @pytest.mark.parametrize("arch", [a for a in TR.list_archs()

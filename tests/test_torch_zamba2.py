@@ -247,9 +247,14 @@ def test_default_fields_keep_the_jax_package_block():
 
 
 def test_published_block_refuses_a_model_axis(case):
+    """The walk refuses it in training, prefill and decode alike."""
     cfg, W, tokens, _ = case
     sh = types.SimpleNamespace(tp=True, m=2)
-    with pytest.raises(ValueError, match="tensor-parallel"):
-        TM._run_stack(T.unflatten(W.items()), cfg,
-                      torch.zeros(2, 32, cfg.d_model),
-                      torch.zeros(2, 32, dtype=torch.long), sh)
+    x = torch.zeros(2, 32, cfg.d_model)
+    positions = torch.zeros(2, 32, dtype=torch.long)
+    for mode in ({}, {"keep": True},
+                 {"cache": TM.make_cache(cfg, 2, 32, device=CPU),
+                  "index": 0}):
+        with pytest.raises(ValueError, match="tensor-parallel"):
+            TM._walk(T.unflatten(W.items()), cfg, [x], positions, sh,
+                     **mode)
